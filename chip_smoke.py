@@ -7,10 +7,13 @@ Phases, one JSON line each:
 
   0. device and build: torch version, the card's name and power limit,
      seconds to build the kernels from ``typeagent_tpu_torch/csrc``;
-  1. each kernel (K1 top-k, K2 bucket maxima, K3 rescore) against its plain
-     PyTorch version on the card, over d, b, k, dtype, a ragged count, a
-     store of exact duplicate rows and a one-bucket cluster (phases 2 and 4
-     check each kernel again at the main path's own shapes);
+  1. each kernel (K1 top-k, K2 bucket maxima, K3 rescore, K4 interval
+     top-k, K5 row-masked top-k, K6 int8 top-k, K7 int8 row-masked top-k)
+     against its plain PyTorch version on the card, over d, b, k, dtype, a
+     ragged count, exact duplicate rows across split and interval edges,
+     1, 8 and 9 intervals (overlapping, (0, 0)-padded, one holding the
+     count watermark) and a one-bucket cluster, at 65,536 rows and (K4-K7)
+     at 1M x 384 (later phases check each kernel again at their shapes);
   2. the main path at full width: a 1M x 384 f32 store ingested in 10
      chunks while it answers lookups, then served through LookupBatcher
      (64 concurrent requests), one batch-256 sync lookup and one keyed
@@ -18,7 +21,21 @@ Phases, one JSON line each:
      no certificate may miss, and the launch counts show which kernels the
      run went through;
   3. the one-phase route: a 100k-row store and a 1M-row exact1 store;
-  4. a 1M-row bf16 store (plain exact2: K2 over the store, K3 on bf16 rows).
+  4. a 1M-row bf16 store (plain exact2: K2 over the store, K3 on bf16 rows);
+  5. a 1M-row int8 store (K6), served b=256 k=10 through LookupBatcher;
+     its answers against its plain route, recall@10 against the f32 ones;
+  6. the multi-conversation corpus, f32, at the repo's 10M-fragment probe
+     layout: 9,984,000 x 384 rows made on the card in 24 interleaved
+     segments over three conversations, b=64 k=10, searched globally (K1),
+     scoped to one conversation (8 intervals, K4), to two (9 intervals
+     after merging, row mask + K5) and to a 100k-row subset (K5);
+  7. the int8 corpus at 30,000,000 x 384 in the same layout (the f32 one
+     freed first): global (K6), one and two conversations (row mask, K7).
+
+Each corpus search is checked three ways: the API's hits are the kernel's
+output on the same operands, that output agrees with the plain version
+(raw values within tolerance, indices equal except at ties), and every hit
+lies in its scope; a probe row from each conversation finds itself.
 
 The line before the last holds every kernel's launches, error and time
 beside its plain version's; the last line is the device summary. Any
@@ -33,6 +50,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -47,6 +65,15 @@ N_MAIN = 1_000_000
 K_MAIN = 10
 TOL_F32 = 2e-6  # raw f32 scores: summation order differs, no TF32
 TOL_BF16 = 1e-5  # bf16 stores: exact bf16 products, f32 sums
+TOL_INT8 = 1e-5  # int8 stores: exact bf16 x int8 products, f32 sums, x scale
+# The corpus layout of tools/tpu_corpus10m_probe.py --fragmented.
+CORPUS_NAMES = ("podcast", "mailbox", "wiki")
+CORPUS_LAYOUT = [name for _ in range(8) for name in CORPUS_NAMES]
+CORPUS_F32_SEG_ROWS = 416_000  # 24 x 416,000 = 9,984,000 rows
+CORPUS_INT8_SEG_ROWS = 1_250_000  # 24 x 1,250,000 = 30,000,000 rows
+CORPUS_CHUNK = 500_000  # rows made on the card per append_device
+CORPUS_B = 64
+KERNELS = ("topk", "bucket_maxima", "rescore", "topk_iv", "topk_mask", "topk_q", "topk_mq")
 
 
 def emit(obj: dict) -> None:
@@ -85,6 +112,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from typeagent_tpu_torch.models.adapters import create_test_embedding_model
     from typeagent_tpu_torch.ops import _build, topk
+    from typeagent_tpu_torch.parallel import CorpusVectorStore
+    from typeagent_tpu_torch.serve import LookupBatcher
     from typeagent_tpu_torch.utils.metrics import METRICS
     from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings, VectorStore
 
@@ -92,18 +121,28 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    kernel_err = {"topk": 0.0, "bucket_maxima": 0.0, "rescore": 0.0}
+    kernel_err = dict.fromkeys(KERNELS, 0.0)
     kernel_ms: dict[str, tuple[float, float]] = {}
+    # Launches of each main path, each counted from a reset just before the
+    # path to a read just after it (comparison launches come later).
+    path_launches = dict.fromkeys(KERNELS, 0)
+
+    def add_path_launches(counts):
+        for name in KERNELS:
+            path_launches[name] += counts[name]
 
     # ---------------------------------------------------------------- helpers
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    def padded_store(m: np.ndarray, n_pad: int, dtype) -> torch.Tensor:
-        buf = torch.zeros((n_pad, m.shape[1]), dtype=dtype, device=dev)
-        buf[: m.shape[0]].copy_(to_dev(m))
+    def pad_dev(m_dev: torch.Tensor, n_pad: int, dtype) -> torch.Tensor:
+        buf = torch.zeros((n_pad, m_dev.shape[1]), dtype=dtype, device=dev)
+        buf[: m_dev.shape[0]] = m_dev
         return buf
+
+    def padded_store(m: np.ndarray, n_pad: int, dtype) -> torch.Tensor:
+        return pad_dev(to_dev(m), n_pad, dtype)
 
     def cuda_ms(fn, iters: int = 10) -> float:
         fn()
@@ -134,17 +173,62 @@ def main() -> int:
         p2 = timer(plain_fn)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
+    plain_of = {
+        "fused_topk": topk.topk_plain, "bucket_maxima": topk.bucket_maxima_plain,
+        "rescore_selected": topk.rescore_selected_plain, "fused_topk_iv": topk.topk_iv_plain,
+        "fused_topk_masked": topk.topk_masked_plain, "fused_topk_q": topk.topk_q_plain,
+        "fused_topk_mq": topk.topk_mq_plain,
+    }
+
     @contextlib.contextmanager
     def plain_kernels():
-        """Route the store's searches through the plain versions on the card."""
-        saved = (topk.fused_topk, topk.bucket_maxima, topk.rescore_selected)
-        topk.fused_topk = topk.topk_plain
-        topk.bucket_maxima = topk.bucket_maxima_plain
-        topk.rescore_selected = topk.rescore_selected_plain
+        """Route the stores' searches through the plain versions on the card."""
+        saved = {name: getattr(topk, name) for name in plain_of}
+        for name, fn in plain_of.items():
+            setattr(topk, name, fn)
         try:
             yield
         finally:
-            topk.fused_topk, topk.bucket_maxima, topk.rescore_selected = saved
+            for name, fn in saved.items():
+                setattr(topk, name, fn)
+
+    def picked_raw(emb, scales, q, idx):
+        """Raw scores of the picked rows, recomputed row by row."""
+        ids = idx.clamp(min=0).long()
+        qq = q.to(torch.bfloat16 if scales is not None else emb.dtype).float()
+        raw = torch.einsum("bkd,bd->bk", emb[ids].float(), qq)
+        return raw * scales[ids] if scales is not None else raw
+
+    def check_scan(got, ref, emb, scales, q, count, in_scope, tol, what):
+        """A top-k scan against its plain version: values within tol, the
+        same number of filled slots, distinct live in-scope picks whose
+        recomputed scores match, and any pick the plain version did not
+        make tying with its k-th value. Returns the max value error."""
+        (gv, gi), (pv, pi) = got, ref
+        err = (gv - pv).abs().max().item()
+        require(err <= tol, f"{what}: max value error {err} > {tol}")
+        filled = gi >= 0
+        require(bool((filled.sum(1) == (pi >= 0).sum(1)).all()), f"{what}: wrong number of filled slots")
+        require(bool((gi < count).all()), f"{what}: a row past the watermark surfaced")
+        require(bool(in_scope(gi.clamp(min=0))[filled].all()), f"{what}: a pick outside the scope")
+        true = picked_raw(emb, scales, q, gi)
+        require(bool(((true - gv).abs() <= tol)[filled].all()), f"{what}: a reported score is not the row's")
+        kth = torch.where(pi >= 0, pv, 3.0).min(dim=1, keepdim=True).values
+        other = filled & ~(gi[:, :, None] == pi[:, None, :]).any(dim=2)
+        require(bool((gv >= kth - tol)[other].all()), f"{what}: a pick outside the plain top-k")
+        for row in gi.cpu().numpy():
+            live = row[row >= 0]
+            require(len(set(live.tolist())) == live.size, f"{what}: duplicate index")
+        return err
+
+    def quantized_store(m_dev, n_pad):
+        """int8 rows and scales of unit rows ``m_dev``, padded to n_pad."""
+        q_rows, scales = topk.quantize_rows_device(m_dev)
+        emb = torch.zeros((n_pad, m_dev.shape[1]), dtype=torch.int8, device=dev)
+        emb[: m_dev.shape[0]] = q_rows
+        sc = torch.ones((n_pad,), device=dev)
+        sc[: m_dev.shape[0]] = scales
+        return emb, sc
 
     def check_raw_topk(emb, q, count, k, got_v, got_i, ref_v, tol, what):
         """Kernel top-k vs plain: values within tol; every pick distinct,
@@ -273,6 +357,89 @@ def main() -> int:
     require(set(idx[0].tolist()) == set(ref_i[0].tolist()), "cluster: exact2 != exact1")
     require(all(256 <= i < 288 for i in idx[0].tolist()), "cluster: rows outside the cluster")
     checks += 1
+
+    # K4-K7. Query 0 is a row duplicated across row-split and interval
+    # edges (and once past the count watermark), so the lowest-row tie rule
+    # is checked through every filter.
+    def scoped_checks(m_dev, n_pad, count, dupes, tables, bs, ks, tag):
+        """``m_dev``: n_pad unit rows, live up to ``count`` (the rows past
+        it hold data too, so a scan that ignores the watermark shows)."""
+        m_dev[dupes] = m_dev[dupes[0]].clone()
+        stores = {
+            "float32": (pad_dev(m_dev, n_pad, torch.float32), None, TOL_F32),
+            "bfloat16": (pad_dev(m_dev, n_pad, torch.bfloat16), None, TOL_BF16),
+            "int8": (*quantized_store(m_dev, n_pad), TOL_INT8),
+        }
+        qs = torch.nn.functional.normalize(
+            torch.randn((max(bs), m_dev.shape[1]), generator=gen, device=dev), dim=1)
+        qs[0] = m_dev[dupes[0]]
+        n_checks = 0
+        for tname, table in tables.items():
+            if table is None:
+                iv, mask = None, torch.ones((n_pad,), dtype=torch.int32, device=dev)
+            else:
+                iv = torch.tensor(table, dtype=torch.int32, device=dev)
+                mask = topk.intervals_to_rowmask(n_pad, iv)[0].contiguous()
+            want = [r for r in dupes if r < count and mask[r].item() > 0]
+            for dname, (emb, sc, tol) in stores.items():
+                for b in bs:
+                    q = qs[:b].contiguous()
+                    for k in ks:
+                        runs = []
+                        if sc is not None and iv is None:
+                            runs.append(("topk_q", lambda: topk.fused_topk_q(emb, sc, q, count, k),
+                                         lambda: topk.topk_q_plain(emb, sc, q, count, k)))
+                        elif sc is not None:
+                            runs.append(("topk_mq", lambda: topk.fused_topk_mq(emb, sc, q, count, mask, k),
+                                         lambda: topk.topk_mq_plain(emb, sc, q, count, mask, k)))
+                        elif iv is not None:
+                            runs.append(("topk_mask", lambda: topk.fused_topk_masked(emb, q, count, mask, k),
+                                         lambda: topk.topk_masked_plain(emb, q, count, mask, k)))
+                            if iv.shape[0] <= topk._PALLAS_MAX_INTERVALS:
+                                runs.append(("topk_iv", lambda: topk.fused_topk_iv(emb, q, count, iv, k),
+                                             lambda: topk.topk_iv_plain(emb, q, count, iv, k)))
+                        for name, kern, plain in runs:
+                            got, ref = kern(), plain()
+                            what = f"{name} {tag} {tname} {dname} b={b} k={k}"
+                            err = check_scan(got, ref, emb, sc, q, count,
+                                             lambda idx: mask[idx.long()] > 0, tol, what)
+                            kernel_err[name] = max(kernel_err[name], err)
+                            top = got[1][0, : min(k, len(want))].tolist()
+                            require(top == want[: len(top)], f"{what}: tie rule {got[1][0].tolist()}")
+                            n_checks += 1
+        return n_checks
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    n_pad, count = 1 << 16, (1 << 16) - 333  # the watermark lies inside [65000, 65536)
+    checks += scoped_checks(
+        to_dev(normed(rng, n_pad, D_MAIN)), n_pad, count,
+        # 255|256 and 1023|1024 straddle row splits (b = 64 and 256), 299|300
+        # and 12799|12800 interval edges; 65300 lies past the watermark.
+        [255, 256, 299, 300, 1023, 1024, 12799, 12800, 40959, 65100, 65300],
+        {
+            "none": None,
+            "1": [[100, 30000]],
+            "8": [[40000, 40960], [0, 300], [250, 700], [65000, 65536],
+                  [0, 0], [0, 0], [12000, 12800], [30000, 30001]],
+            "9": [[i * 7000 + 200, i * 7000 + 1700] for i in range(9)],
+        },
+        (1, 64, 256), (1, 10, 32), "65536",
+    )
+    n_pad, count = (N_MAIN + 1023) // 1024 * 1024, N_MAIN
+    m_dev = torch.nn.functional.normalize(torch.randn((n_pad, D_MAIN), generator=gen, device=dev), dim=1)
+    checks += scoped_checks(
+        # Row splits of 3,840 rows at b = 64 and 15,232 at b = 256.
+        m_dev, n_pad, count, [3839, 3840, 15231, 15232, 62499, 62500, 499_999, 500_000, 999_999],
+        {
+            "none": None,
+            "8": [[i * 125_000, i * 125_000 + 62_500] for i in range(7)] + [[499_999, 500_001]],
+            "9": [[i * 111_000, i * 111_000 + 55_000] for i in range(8)] + [[999_000, n_pad]],
+        },
+        (64, 256), (10,), "1M",
+    )
+    del m_dev
     emit({"phase": 1, "checks": checks, "max_abs_err": kernel_err,
           "topk_err_by_dtype": by_dtype, "ok": True})
 
@@ -311,6 +478,7 @@ def main() -> int:
     served, serve_s, key_hits, batcher_stats = asyncio.run(serve())
     big_rows = store.fuzzy_lookup_embeddings_batch(big, max_hits=K_MAIN)
     launches = topk.launch_counts()
+    add_path_launches(launches)
     cert_q = METRICS.counters.get("vectorstore.cert_queries", 0)
     cert_miss = METRICS.counters.get("vectorstore.cert_misses", 0)
     for name in ("topk", "bucket_maxima", "rescore"):
@@ -438,16 +606,200 @@ def main() -> int:
           "ms_per_batch256": ms, "plain_ms_per_batch256": plain, "ok": True})
     del s
 
+    # ------------------------------------------------------ 5. int8 store, 1M
+    s = VectorStore(store_settings(dtype="int8"))
+    s.load_device_rows(buf[:N_MAIN, :D_MAIN])
+    requests8 = [big] + [normed(rng, 256, D_MAIN) for _ in range(3)]
+
+    async def serve8():
+        batcher = LookupBatcher(s, max_delay_ms=2.0)
+        out = await asyncio.gather(*(batcher.lookup(r, max_hits=K_MAIN) for r in requests8))
+        stats = batcher.stats()
+        await batcher.close()
+        return out, stats
+
+    topk.reset_launch_counts()
+    served8, stats8 = asyncio.run(serve8())
+    counts = topk.launch_counts()
+    add_path_launches(counts)
+    require(counts["topk_q"] > 0, f"int8 store: route {counts}")
+    require(counts["materialized_topk"] == 0, "int8 store took the k > 32 materialized route")
+    res = served8[0]
+    with plain_kernels():
+        ref = s.fuzzy_lookup_embeddings_batch(big, max_hits=K_MAIN)
+    worst, same = 0.0, 0
+    for a, r in zip(res, ref):
+        require(len(a) == len(r) == K_MAIN, "int8: short answer")
+        worst = max(worst, float(np.abs(np.array([x.score for x in a]) - [x.score for x in r]).max()))
+        same += len({x.item for x in a} & {x.item for x in r})
+        kth = r[-1].score
+        require(all(x.item in {y.item for y in r} or abs(x.score - kth) <= TOL_INT8 for x in a),
+                "int8: pick outside the plain top-k")
+    require(worst <= TOL_INT8, f"int8: score error {worst}")
+    recall_f32 = sum(
+        len({x.item for x in a} & {x.item for x in r}) for a, r in zip(res, big_rows)
+    ) / (K_MAIN * len(res))
+    got = topk.fused_topk_q(s._buf, s._scales, qd, s._count, K_MAIN)
+    ref_raw = topk.topk_q_plain(s._buf, s._scales, qd, s._count, K_MAIN)
+    kernel_err["topk_q"] = max(kernel_err["topk_q"], check_scan(
+        got, ref_raw, s._buf, s._scales, qd, s._count, lambda idx: idx >= 0, TOL_INT8, "K6 1M int8"))
+    ms, plain = in_turns(host_ms, batch_lookup(s), plain_lookup(s))
+    emit({"phase": 5, "rows": s._count, "dtype": "int8", "route": "quantized (K6)",
+          "launches": counts, "batcher": stats8, "served_queries": 256 * len(requests8),
+          "agree_with_plain": same / (K_MAIN * len(res)), "max_score_err_vs_plain": worst,
+          "recall_vs_f32": recall_f32, "ms_per_batch256": ms, "plain_ms_per_batch256": plain,
+          "ok": True})
+    del s, store, buf, shadow, ids, rows_dev
+
+    # ------------------------------------------- 6-7. the multi-conversation corpus
+    def corpus_phase(phase, dtype, seg_rows, tol, probe_floor, with_subset):
+        """Build the fragmented corpus on the card, drive its searches once
+        (the counted main path), then hold each against its kernel and the
+        kernel against its plain version. Returns the phase's line."""
+        torch.cuda.reset_peak_memory_stats()
+        corpus = CorpusVectorStore(D_MAIN, device="cuda", dtype=dtype)
+        t0 = time.perf_counter()
+        corpus.reserve(seg_rows * len(CORPUS_LAYOUT))
+        for name in CORPUS_LAYOUT:
+            for done in range(0, seg_rows, CORPUS_CHUNK):
+                step = min(CORPUS_CHUNK, seg_rows - done)
+                corpus.append_device(name, torch.randn((step, D_MAIN), generator=gen, device=dev))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        store = corpus._store
+        emb, sc, count = store.buf, store._scales, store.count
+        require(count == seg_rows * len(CORPUS_LAYOUT), f"corpus holds {count} rows")
+        # Probes: row 123 of segments 12-14 (podcast, mailbox, wiki).
+        probes = [(seg * seg_rows + 123, CORPUS_LAYOUT[seg], (seg // 3) * seg_rows + 123)
+                  for seg in (12, 13, 14)]
+        q_raw = normed(rng, CORPUS_B, D_MAIN)
+        for j, (g, _, _) in enumerate(probes):
+            q_raw[j] = store.get_row(g)
+        # The query block the store builds from q_raw (corpus.search
+        # normalizes as below, the store pads to the dim and to b % 8).
+        norms = np.linalg.norm(q_raw, axis=1, keepdims=True)
+        qn = q_raw / np.where(norms > 0, norms, 1.0)
+        q_dev = torch.zeros((CORPUS_B, emb.shape[1]), device=dev)
+        q_dev[:, :D_MAIN] = to_dev(qn)
+        subset = rng.choice(count, 100_000, replace=False)
+        subset[: len(probes)] = [p[0] for p in probes]
+        scopes = {"global": None, "podcast": ["podcast"], "podcast+wiki": ["podcast", "wiki"]}
+
+        def run_search(scope):
+            if scope == "subset":
+                return store.search_subset(qn, subset, k=K_MAIN)
+            return corpus.search(q_raw, k=K_MAIN, conversations=scopes[scope])
+
+        names = list(scopes) + (["subset"] if with_subset else [])
+        topk.reset_launch_counts()
+        results = {scope: run_search(scope) for scope in names}
+        counts = topk.launch_counts()
+        add_path_launches(counts)
+        require(counts["materialized_topk"] == 0, f"corpus {dtype}: k > 32 materialized route")
+        n_rows = emb.shape[0]
+        out = {"phase": phase, "rows": count, "dtype": dtype, "segments": len(CORPUS_LAYOUT),
+               "b": CORPUS_B, "k": K_MAIN, "build_s": round(build_s, 3), "launches": counts}
+        for scope in names:
+            if scope == "subset":
+                mask = torch.zeros((n_rows,), dtype=torch.int32, device=dev)
+                mask[to_dev(subset)] = 1
+                n_iv = None
+            elif scopes[scope] is None:
+                mask, n_iv = None, 0
+            else:
+                intervals = corpus._segment_intervals(set(scopes[scope]))
+                n_iv = len(intervals)
+                table = np.zeros((8 if n_iv <= 8 else 32, 2), np.int32)
+                table[:n_iv] = intervals
+                table_dev = to_dev(table)
+                mask = topk.intervals_to_rowmask(n_rows, table_dev)[0].contiguous()
+            if sc is not None:
+                name = "topk_q" if mask is None else "topk_mq"
+                kern = (lambda: topk.fused_topk_q(emb, sc, q_dev, count, K_MAIN)) if mask is None else \
+                    (lambda: topk.fused_topk_mq(emb, sc, q_dev, count, mask, K_MAIN))
+                plain = (lambda: topk.topk_q_plain(emb, sc, q_dev, count, K_MAIN)) if mask is None else \
+                    (lambda: topk.topk_mq_plain(emb, sc, q_dev, count, mask, K_MAIN))
+            elif mask is None:
+                name = "topk"
+                kern = lambda: topk.fused_topk(emb, q_dev, count, K_MAIN)  # noqa: E731
+                plain = lambda: topk.topk_plain(emb, q_dev, count, K_MAIN)  # noqa: E731
+            elif n_iv is not None and n_iv <= topk._PALLAS_MAX_INTERVALS:
+                name = "topk_iv"
+                kern = lambda: topk.fused_topk_iv(emb, q_dev, count, table_dev, K_MAIN)  # noqa: E731
+                plain = lambda: topk.topk_iv_plain(emb, q_dev, count, table_dev, K_MAIN)  # noqa: E731
+            else:
+                name = "topk_mask"
+                kern = lambda: topk.fused_topk_masked(emb, q_dev, count, mask, K_MAIN)  # noqa: E731
+                plain = lambda: topk.topk_masked_plain(emb, q_dev, count, mask, K_MAIN)  # noqa: E731
+            require(counts[name] > 0, f"corpus {dtype} {scope}: the {name} kernel never ran")
+            what = f"corpus {dtype} {scope} ({name})"
+            got = kern()
+            in_scope = (lambda idx: idx >= 0) if mask is None else (lambda idx: mask[idx.long()] > 0)
+            err = check_scan(got, plain(), emb, sc, q_dev, count, in_scope, tol, what)
+            kernel_err[name] = max(kernel_err[name], err)
+            # The API answered with exactly this kernel output.
+            vals, idx = (t.cpu().numpy() for t in topk._raw_to_score(*got))
+            for r, hits in enumerate(results[scope]):
+                if scope == "subset":
+                    got_ids, got_scores = [i for i, _ in hits], [v for _, v in hits]
+                else:
+                    got_ids = [h.global_ordinal for h in hits]
+                    got_scores = [h.score for h in hits]
+                    want = set(scopes[scope] or CORPUS_NAMES)
+                    require(all(h.conversation in want for h in hits), f"{what}: hit outside the scope")
+                keep = idx[r] >= 0
+                require(got_ids == idx[r][keep].tolist(), f"{what}: API hits differ from the kernel's")
+                require(np.allclose(got_scores, vals[r][keep], atol=1e-6, rtol=0), f"{what}: API scores")
+            for j, (g, conv, local) in enumerate(probes):
+                if scope == "subset" or conv in (scopes[scope] or CORPUS_NAMES):
+                    top = results[scope][j][0]
+                    top_id, top_score = (top if scope == "subset" else (top.global_ordinal, top.score))
+                    require(top_id == g and top_score >= probe_floor,
+                            f"{what}: probe {conv}:{local} found {top_id} ({top_score})")
+                    if scope != "subset":
+                        require((top.conversation, top.local_ordinal) == (conv, local),
+                                f"{what}: probe resolved to {top.conversation}:{top.local_ordinal}")
+            ms, plain_ms = in_turns(lambda fn: cuda_ms(fn, iters=3), kern, plain)
+
+            def plain_run():
+                with plain_kernels():
+                    run_search(scope)
+
+            api_ms, api_plain_ms = in_turns(
+                lambda fn: host_ms(fn, iters=3), lambda: run_search(scope), plain_run)
+            # K1's entry stays phase 2's (1M x 384, b=256); the others take
+            # their first corpus search.
+            kernel_ms.setdefault(name, (ms, plain_ms))
+            out[scope] = {"kernel": name, "intervals": n_iv, "max_abs_err": err,
+                          "kernel_ms": ms, "plain_kernel_ms": plain_ms,
+                          "ms_per_batch": api_ms, "plain_ms_per_batch": api_plain_ms}
+        out["peak_mem_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+        out["ok"] = True
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(corpus_phase(6, "float32", CORPUS_F32_SEG_ROWS, TOL_F32, 1 - 1e-6, True))
+    gc.collect()  # the f32 corpus is gone before the int8 one is built
+    torch.cuda.empty_cache()
+    emit(corpus_phase(7, "int8", CORPUS_INT8_SEG_ROWS, TOL_INT8, 0.999, False))
+
     # --------------------------------------------------------------- summary
+    for name in KERNELS:
+        require(path_launches[name] > 0, f"no main path launched the {name} kernel")
     sources = {
         "topk": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:116"),
         "bucket_maxima": ("csrc/bucket_maxima.cu", "typeagent_tpu/ops/topk.py:1064"),
         "rescore": ("csrc/rescore.cu", "typeagent_tpu/ops/topk.py:1334"),
+        "topk_iv": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:386"),
+        "topk_mask": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:511"),
+        "topk_q": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:662"),
+        "topk_mq": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:757"),
     }
     print(smi_line(), flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"typeagent_tpu_torch/{src}", "replaces": rep,
-         "launches": launches[name], "max_abs_err": kernel_err[name],
+         "launches": path_launches[name], "max_abs_err": kernel_err[name],
          "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1]}
         for name, (src, rep) in sources.items()
     ]})

@@ -123,3 +123,180 @@ def test_wrapper_rejects_bad_operands(dev):
         topk.fused_topk(emb, torch.zeros((4, 128), device=dev, dtype=torch.float64), 10, 5)
     with pytest.raises(ValueError):
         topk.fused_topk(emb, torch.zeros((4, 128), device=dev), 10, 33)
+
+
+def _check_scan(got, ref, raw_full, tol):
+    """A scan's (vals, idx) against its plain version's: values within tol,
+    the same number of filled slots, distinct picks each scoring (in the
+    plain version's masked raw matrix) what the kernel reported."""
+    (gv, gi), (pv, pi) = got, ref
+    assert (gv - pv).abs().max().item() <= tol
+    assert bool(((gi >= 0).sum(1) == (pi >= 0).sum(1)).all())
+    filled = gi >= 0
+    true = raw_full.gather(1, gi.clamp(min=0).long())
+    assert bool(((true - gv).abs() <= tol)[filled].all())
+    assert bool((true > -2.0)[filled].all())  # every pick in scope and live
+    for row in gi.cpu().numpy():
+        live = row[row >= 0]
+        assert len(set(live.tolist())) == live.size
+
+
+def _scoped_case(dev, dtype, rng):
+    n_pad, count, d = 9216, 9000 - 45, 384
+    emb = _store(rng, n_pad, count, d, dtype, dev)
+    # Duplicates on both sides of interval edges (tie rule across a filter
+    # boundary and across row splits).
+    dupes = [99, 100, 2047, 2048, 5000, 8954]
+    emb[dupes] = emb[dupes[0]].clone()
+    q = _queries(rng, 40, d, dev)
+    q[0] = emb[dupes[0]].float()
+    return emb, q, count, dupes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "table",
+    [
+        [[100, 2048]],
+        # 8 rows: overlapping, unsorted, (0, 0) padding, one reaching past
+        # the count watermark (8955).
+        [[5000, 5100], [0, 50], [40, 120], [2000, 2100], [8900, 9216], [0, 0], [0, 0], [7000, 7001]],
+    ],
+)
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_fused_topk_iv_matches_plain(dev, dtype, table, k):
+    rng = np.random.default_rng(6)
+    emb, q, count, _ = _scoped_case(dev, dtype, rng)
+    iv = torch.tensor(table, dtype=torch.int32, device=dev)
+    topk.reset_launch_counts()
+    got = topk.fused_topk_iv(emb, q, count, iv, k)
+    ref = topk.topk_iv_plain(emb, q, count, iv, k)
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["topk_iv"] == 1
+    ids = torch.arange(emb.shape[0], device=dev)
+    raw = topk._raw_scores(emb, q, count).masked_fill(~topk._in_intervals(ids, iv)[None, :], -3.0)
+    _check_scan(got, ref, raw, TOL[dtype])
+    assert got[1][0].tolist() == ref[1][0].tolist()  # lowest-row ties, query 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_fused_topk_masked_matches_plain(dev, dtype, k):
+    rng = np.random.default_rng(7)
+    emb, q, count, _ = _scoped_case(dev, dtype, rng)
+    mask = torch.from_numpy((rng.random(emb.shape[0]) < 0.3).astype(np.int32)).to(dev)
+    mask[[99, 2048, 8954]] = 1
+    mask[[100, 2047]] = -1  # not > 0: out of scope, as in the JAX kernel
+    topk.reset_launch_counts()
+    got = topk.fused_topk_masked(emb, q, count, mask, k)
+    ref = topk.topk_masked_plain(emb, q, count, mask, k)
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["topk_mask"] == 1
+    raw = topk._raw_scores(emb, q, count).masked_fill(~(mask > 0)[None, :], -3.0)
+    _check_scan(got, ref, raw, TOL[dtype])
+    assert got[1][0].tolist() == ref[1][0].tolist()
+
+
+def _int8_case(dev, rng):
+    n_pad, count, d = 9216, 9000 - 45, 384
+    m = rng.standard_normal((count, d)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    m[[99, 2048, 8954]] = m[99]
+    q_rows, scales = topk.quantize_rows(m)
+    emb = torch.zeros((n_pad, d), dtype=torch.int8, device=dev)
+    emb[:count] = torch.from_numpy(q_rows).to(dev)
+    sc = torch.ones((n_pad,), device=dev)
+    sc[:count] = torch.from_numpy(scales).to(dev)
+    q = _queries(rng, 40, d, dev)
+    q[0] = torch.from_numpy(m[99]).to(dev)
+    return emb, sc, q, count
+
+
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_fused_topk_q_matches_plain(dev, k):
+    rng = np.random.default_rng(8)
+    emb, sc, q, count = _int8_case(dev, rng)
+    topk.reset_launch_counts()
+    got = topk.fused_topk_q(emb, sc, q, count, k)
+    ref = topk.topk_q_plain(emb, sc, q, count, k)
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["topk_q"] == 1
+    _check_scan(got, ref, topk._raw_scores_q(emb, sc, q, count), 1e-5)
+    assert got[1][0, :3].tolist() == [99, 2048, 8954][:k]
+
+
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_fused_topk_mq_matches_plain(dev, k):
+    rng = np.random.default_rng(9)
+    emb, sc, q, count = _int8_case(dev, rng)
+    mask = topk.intervals_to_rowmask(
+        emb.shape[0], torch.tensor([[0, 1000], [2048, 2049], [8000, 9216]], dtype=torch.int32, device=dev)
+    )
+    topk.reset_launch_counts()
+    got = topk.fused_topk_mq(emb, sc, q, count, mask, k)
+    ref = topk.topk_mq_plain(emb, sc, q, count, mask, k)
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["topk_mq"] == 1
+    raw = topk._raw_scores_q(emb, sc, q, count).masked_fill(~(mask > 0), -3.0)
+    _check_scan(got, ref, raw, 1e-5)
+    assert got[1][0, :3].tolist() == [99, 2048, 8954][:k]
+
+
+def test_scoped_routes_count_their_kernels(dev):
+    rng = np.random.default_rng(10)
+    emb, q, count, _ = _scoped_case(dev, torch.float32, rng)
+    small = torch.tensor([[0, 500]] * 8, dtype=torch.int32, device=dev)
+    large = torch.tensor([[i * 900, i * 900 + 100] for i in range(9)], dtype=torch.int32, device=dev)
+    topk.reset_launch_counts()
+    topk.topk_program_intervals(emb, q, count, small, 10)
+    topk.topk_program_intervals(emb, q, count, large, 10)
+    counts = topk.launch_counts()
+    assert counts["topk_iv"] == 1 and counts["topk_mask"] == 1 and counts["materialized_topk"] == 0
+
+
+def test_int8_store_on_cuda_matches_cpu_store(dev):
+    rng = np.random.default_rng(11)
+    m = rng.standard_normal((3000, 64)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    q = torch.from_numpy(m[:6] + 0.05).bfloat16().float().numpy()
+    out = {}
+    for device in ("cpu", "cuda"):
+        s = VectorStore(TextEmbeddingIndexSettings(
+            embedding_model=create_test_embedding_model(64), min_score=0.0,
+            dtype="int8", device=device,
+        ))
+        s.add_embeddings(None, m)
+        out[device] = s.fuzzy_lookup_embeddings_batch(q, max_hits=10)
+    for a, b in zip(out["cpu"], out["cuda"]):
+        assert [x.item for x in a] == [x.item for x in b]
+        np.testing.assert_allclose([x.score for x in a], [x.score for x in b], atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_corpus_on_cuda_matches_cpu_corpus(dev, dtype):
+    from typeagent_tpu_torch.parallel import CorpusVectorStore
+
+    rng = np.random.default_rng(12)
+    # 8 rounds of a|b|c: "a" is 8 intervals (K4), "a"+"c" 9 after c|a
+    # segments merge (row mask, K5); int8 scopes always take K7.
+    segs = [(name, rng.standard_normal((150, 64)).astype(np.float32))
+            for _ in range(8) for name in ("a", "b", "c")]
+    q = np.zeros((9, 64), np.float32)  # unit +-0.25 rows: bf16-exact after normalizing
+    for row in q:
+        row[rng.choice(64, 16, replace=False)] = rng.choice([-0.25, 0.25], 16)
+    out = {}
+    topk.reset_launch_counts()
+    for device in ("cpu", "cuda"):
+        corpus = CorpusVectorStore(64, device=device, dtype=dtype)
+        for name, rows in segs:
+            corpus.append(name, rows)
+        out[device] = [corpus.search(q, k=10, conversations=c) for c in (None, ["a"], ["a", "c"])]
+    counts = topk.launch_counts()
+    if dtype == "int8":
+        assert counts["topk_q"] == 1 and counts["topk_mq"] == 2
+    else:
+        assert counts["topk"] == 1 and counts["topk_iv"] == 1 and counts["topk_mask"] == 1
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for a, b in zip(got, want):
+            assert [(h.conversation, h.local_ordinal) for h in a] == [(h.conversation, h.local_ordinal) for h in b]
+            np.testing.assert_allclose([h.score for h in a], [h.score for h in b], atol=1e-5)

@@ -54,6 +54,8 @@ def test_package_has_the_slice_modules():
         "typeagent_tpu_torch.utils.metrics",
         "typeagent_tpu_torch.vectorstore",
         "typeagent_tpu_torch.serve",
+        "typeagent_tpu_torch.parallel.sharded",
+        "typeagent_tpu_torch.parallel.corpus",
     ):
         assert name in MODULES
 
@@ -73,6 +75,34 @@ def test_import_compiles_nothing():
         "from typeagent_tpu_torch import native\n"
         "assert _build._kernels is None\n"
         "assert native._results_mod is None and not native._results_attempted\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=str(PKG.parent), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_new_modules_import_without_jax():
+    """The corpus store and the scoped/int8 routes import in a process where
+    importing jax, ml_dtypes, pydantic or httpx fails."""
+    code = (
+        "import builtins\n"
+        "real = builtins.__import__\n"
+        "def guard(name, *a, **k):\n"
+        "    if name.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'pydantic', 'httpx'):\n"
+        "        raise ImportError(f'forbidden import {name}')\n"
+        "    return real(name, *a, **k)\n"
+        "builtins.__import__ = guard\n"
+        "import sys\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes')]:\n"
+        "    del sys.modules[m]\n"
+        "from typeagent_tpu_torch.parallel import CorpusVectorStore, ShardedVectorStore\n"
+        "from typeagent_tpu_torch.ops.topk import (fused_topk_iv, fused_topk_masked, fused_topk_q,\n"
+        "    fused_topk_mq, intervals_to_rowmask, quantize_rows_device)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))

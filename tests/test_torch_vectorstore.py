@@ -359,7 +359,6 @@ def test_warm_serving_runs_each_bucket(rng):
 def test_settings_refuse_unported_modes_and_missing_device():
     model = create_test_embedding_model(8)
     for kw, item in (
-        ({"dtype": "int8"}, "item 7"),
         ({"search_mode": "approx"}, "item 8"),
         ({"search_mode": "ivf"}, "item 8"),
         ({"mesh": object()}, "item 9"),
@@ -371,6 +370,12 @@ def test_settings_refuse_unported_modes_and_missing_device():
         TextEmbeddingIndexSettings(device="cpu")
     with pytest.raises(ValueError):
         TextEmbeddingIndexSettings(embedding_model=model, device="cpu", search_mode="fast")
+    # int8 stores are ported; the JAX package's ValueErrors for the
+    # combinations it refuses stay.
+    assert TextEmbeddingIndexSettings(embedding_model=model, device="cpu", dtype="int8").dtype == "int8"
+    for kw in ({"search_mode": "approx"}, {"search_mode": "ivf"}, {"query_wire": "int8"}):
+        with pytest.raises(ValueError):
+            TextEmbeddingIndexSettings(embedding_model=model, device="cpu", dtype="int8", **kw)
 
 
 def test_cuda_device_raises_without_a_card(monkeypatch):

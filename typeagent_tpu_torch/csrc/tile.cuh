@@ -1,11 +1,13 @@
 // Shared pieces of the cosine top-k kernels: the [QB queries x RB rows]
-// score tile that K1 (topk.cu) and K2 (bucket_maxima.cu) both compute, and
-// the warp-held sorted top-k list that K1's scan and merge passes share.
+// score tile that the top-k scans (topk.cu: K1, K4-K7) and K2
+// (bucket_maxima.cu) compute, and the warp-held sorted top-k list that the
+// scan and merge passes share.
 //
 // The tile is a plain FP32 FFMA product (no TF32, no tensor cores): the JAX
-// kernels score f32 stores at Precision.HIGHEST, and a bf16 store's products
-// are exact in f32, so FFMA on upcast operands gives the same sums up to
-// summation order. Each thread owns a 4 x 4 block of the tile: queries
+// kernels score f32 stores at Precision.HIGHEST, and the products of a bf16
+// store (bf16 x bf16) or an int8 store (bf16 query x int8 row) are exact in
+// f32, so FFMA on upcast operands gives the same sums up to summation
+// order. Each thread owns a 4 x 4 block of the tile: queries
 // ty*4 .. ty*4+3 (ty = warp) against rows tx, tx+32, tx+64, tx+96
 // (tx = lane), so one warp holds all RB scores of its four queries.
 
@@ -28,9 +30,12 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 // Queries arrive as f32 and are cast to the store dtype first, as the JAX
-// kernels do (q.astype(emb.dtype)), then upcast for the f32 product.
+// kernels do (q.astype(emb.dtype)), then upcast for the f32 product. An
+// int8 store scores bf16 queries (the JAX int8 kernels take
+// queries.astype(bfloat16)).
 template <typename T>
 __device__ __forceinline__ float query_in_store_dtype(float x);
 template <>
@@ -39,6 +44,10 @@ __device__ __forceinline__ float query_in_store_dtype<float>(float x) {
 }
 template <>
 __device__ __forceinline__ float query_in_store_dtype<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+template <>
+__device__ __forceinline__ float query_in_store_dtype<int8_t>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 

@@ -1,13 +1,22 @@
-// K1: one-phase fused cosine top-k (k <= 32) over a padded embedding store.
+// Fused cosine top-k (k <= 32) over a padded embedding store: K1 and its
+// scoped and int8 variants K4-K7, one scan kernel with two template
+// parameters (the row type and the row filter) and one merge kernel.
 //
-// Replaces: typeagent_tpu/ops/topk.py  _topk_kernel + _mask_and_fold +
-//   _fold_tile_into_topk, launched by _topk_pallas_impl.
+// Replaces (typeagent_tpu/ops/topk.py), each with its _mask_and_fold /
+// _fold_tile_into_topk:
+//   K1 _topk_kernel     (_topk_pallas_impl)     rows f32/bf16, no filter
+//   K4 _topk_kernel_iv  (_topk_pallas_iv_impl)  rows f32/bf16, <= 8 intervals
+//   K5 _topk_kernel_m   (_topk_pallas_m_impl)   rows f32/bf16, i32 row mask
+//   K6 _topk_kernel_q   (_topk_pallas_q_impl)   rows int8 + f32 scales
+//   K7 _topk_kernel_mq  (_topk_pallas_mq_impl)  rows int8 + scales + mask
 //
 // What bounds it on an H100: at serving batches (b >= 32) the FP32 FFMA
 //   rate. The score tile is computed with plain FFMA because f32 stores
 //   must match Precision.HIGHEST (no TF32): 2*b*n*d flops, 197 GFLOP for
 //   b=256 over 1M x 384, against 67 TFLOP/s FP32 peak. At b = 8 the store
-//   read (n*d*itemsize bytes) bounds it instead.
+//   read (n*d*itemsize bytes) bounds it instead. The filters cost one
+//   compare per row and tile (an i32 read per row for the mask); an int8
+//   row costs a quarter of an f32 row's bytes but the same FFMAs.
 //
 // Design: the TPU kernel carries its running top-k in a VMEM output block
 //   across a grid that runs in order. CTAs run in no order, so the search
@@ -20,24 +29,49 @@
 //   folds the splits' lists, in split order, into the final [b, k].
 //   Both passes insert equal values in ascending row order, so ties go to
 //   the lowest row as in the JAX kernel. Unfilled slots are (-3.0, -1).
+//
+// Filters and scales: a row at or past `count`, or outside the scope, is
+//   offered as RAW_NEG and never enters a list. The interval table (K4) is
+//   copied to shared memory once per CTA; the mask (K5, K7) is read by the
+//   lane that owns the row. An int8 row is upcast exactly and scored against
+//   the bf16-rounded query; its scale multiplies the f32 dot afterwards, as
+//   the JAX kernel does (raw * s_ref), never the row before the dot.
+
+#include <type_traits>
 
 #include "tile.cuh"
 
 namespace tat {
 
-template <typename T>
+enum RowFilter { kNoFilter = 0, kIntervals = 1, kMask = 2 };
+constexpr int MAX_INTERVALS = 8;  // the JAX _PALLAS_MAX_INTERVALS
+
+// What a filtered or int8 scan reads beside the rows; unused fields are null.
+struct ScanExtras {
+  const float* scales;     // int8 rows: per-row scale [n_rows]
+  const int* intervals;    // kIntervals: [n_intervals, 2] half-open spans
+  int n_intervals;
+  const int* mask;         // kMask: [n_rows], > 0 = searchable
+};
+
+template <typename T, int F>
 __global__ void __launch_bounds__(THREADS)
     topk_scan_kernel(const T* __restrict__ emb, const float* __restrict__ q,
                      int64_t n_rows, int d_pad, int b, int64_t count, int k,
-                     int64_t rows_per_split, int splits, float* cand_vals,
-                     int* cand_idx) {
+                     int64_t rows_per_split, int splits, ScanExtras x,
+                     float* cand_vals, int* cand_idx) {
   __shared__ TileSmem s;
+  __shared__ int iv[2 * MAX_INTERVALS];
   const int n_qb = (b + QB - 1) / QB;
   const int qb = blockIdx.x % n_qb;
   const int split = blockIdx.x / n_qb;
   const int q0 = qb * QB;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  if constexpr (F == kIntervals) {
+    if (threadIdx.x < 2 * x.n_intervals) iv[threadIdx.x] = x.intervals[threadIdx.x];
+    __syncthreads();
+  }
 
   WarpTopK top[4];
 #pragma unroll
@@ -50,13 +84,29 @@ __global__ void __launch_bounds__(THREADS)
   float acc[4][4];
   for (int64_t r0 = begin; r0 < end; r0 += RB) {
     score_tile<T>(emb, q, n_rows, d_pad, b, q0, r0, s, acc);
+    bool ok[4];
+    float scale[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t r = r0 + lane + 32 * j;
+      ok[j] = r < end;
+      if constexpr (F == kIntervals) {
+        bool in = false;
+        for (int t = 0; t < x.n_intervals; ++t)
+          in |= r >= iv[2 * t] && r < iv[2 * t + 1];
+        ok[j] = ok[j] && in;
+      }
+      if constexpr (F == kMask) ok[j] = ok[j] && x.mask[r] > 0;
+      if constexpr (std::is_same<T, int8_t>::value)
+        scale[j] = ok[j] ? x.scales[r] : 0.0f;
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int64_t r = r0 + lane + 32 * j;
-        const float v = r < end ? acc[i][j] : RAW_NEG;
-        top[i].offer(v, (int)r, k, lane);
+        float v = acc[i][j];
+        if constexpr (std::is_same<T, int8_t>::value) v *= scale[j];
+        top[i].offer(ok[j] ? v : RAW_NEG, (int)(r0 + lane + 32 * j), k, lane);
       }
     }
   }
@@ -93,26 +143,105 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+template <typename T, int F>
+int launch_scan(const void* emb, const float* q, int64_t n_rows, int d_pad,
+                int b, int64_t count, int k, int64_t rows_per_split,
+                int splits, ScanExtras x, float* cand_vals, int* cand_idx,
+                void* stream) {
+  const int n_qb = (b + QB - 1) / QB;
+  const dim3 grid((unsigned)(n_qb * splits));
+  topk_scan_kernel<T, F><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)emb, q, n_rows, d_pad, b, count, k, rows_per_split, splits, x,
+      cand_vals, cand_idx);
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 = float32 store, 1 = bfloat16 store.
+template <int F>
+int launch_float_scan(const void* emb, int dtype, const float* q,
+                      int64_t n_rows, int d_pad, int b, int64_t count, int k,
+                      int64_t rows_per_split, int splits, ScanExtras x,
+                      float* cand_vals, int* cand_idx, void* stream) {
+  if (dtype == 0)
+    return launch_scan<float, F>(emb, q, n_rows, d_pad, b, count, k,
+                                 rows_per_split, splits, x, cand_vals,
+                                 cand_idx, stream);
+  return launch_scan<__nv_bfloat16, F>(emb, q, n_rows, d_pad, b, count, k,
+                                       rows_per_split, splits, x, cand_vals,
+                                       cand_idx, stream);
+}
+
 }  // namespace tat
 
-// dtype: 0 = float32 store, 1 = bfloat16 store. Returns cudaGetLastError().
+// Every entry point returns cudaGetLastError() after its launch.
+
+// K1. dtype: 0 = float32 store, 1 = bfloat16 store.
 extern "C" int tat_topk_scan(const void* emb, int dtype, const float* q,
                              int64_t n_rows, int d_pad, int b, int64_t count,
                              int k, int64_t rows_per_split, int splits,
                              float* cand_vals, int* cand_idx, void* stream) {
-  const int n_qb = (b + tat::QB - 1) / tat::QB;
-  const dim3 grid((unsigned)(n_qb * splits));
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    tat::topk_scan_kernel<float><<<grid, tat::THREADS, 0, st>>>(
-        (const float*)emb, q, n_rows, d_pad, b, count, k, rows_per_split,
-        splits, cand_vals, cand_idx);
-  } else {
-    tat::topk_scan_kernel<__nv_bfloat16><<<grid, tat::THREADS, 0, st>>>(
-        (const __nv_bfloat16*)emb, q, n_rows, d_pad, b, count, k,
-        rows_per_split, splits, cand_vals, cand_idx);
-  }
-  return (int)cudaGetLastError();
+  return tat::launch_float_scan<tat::kNoFilter>(
+      emb, dtype, q, n_rows, d_pad, b, count, k, rows_per_split, splits,
+      tat::ScanExtras{}, cand_vals, cand_idx, stream);
+}
+
+// K4: rows inside any of n_intervals (<= 8) [start, stop) spans.
+extern "C" int tat_topk_scan_iv(const void* emb, int dtype, const float* q,
+                                int64_t n_rows, int d_pad, int b,
+                                int64_t count, int k, int64_t rows_per_split,
+                                int splits, const int* intervals,
+                                int n_intervals, float* cand_vals,
+                                int* cand_idx, void* stream) {
+  if (n_intervals < 0 || n_intervals > tat::MAX_INTERVALS)
+    return (int)cudaErrorInvalidValue;
+  tat::ScanExtras x{};
+  x.intervals = intervals;
+  x.n_intervals = n_intervals;
+  return tat::launch_float_scan<tat::kIntervals>(
+      emb, dtype, q, n_rows, d_pad, b, count, k, rows_per_split, splits, x,
+      cand_vals, cand_idx, stream);
+}
+
+// K5: rows whose i32 mask entry is > 0 (the JAX kernel's m_ref > 0).
+extern "C" int tat_topk_scan_mask(const void* emb, int dtype, const float* q,
+                                  int64_t n_rows, int d_pad, int b,
+                                  int64_t count, int k,
+                                  int64_t rows_per_split, int splits,
+                                  const int* mask, float* cand_vals,
+                                  int* cand_idx, void* stream) {
+  tat::ScanExtras x{};
+  x.mask = mask;
+  return tat::launch_float_scan<tat::kMask>(
+      emb, dtype, q, n_rows, d_pad, b, count, k, rows_per_split, splits, x,
+      cand_vals, cand_idx, stream);
+}
+
+// K6: int8 rows with per-row scales.
+extern "C" int tat_topk_scan_q(const int8_t* emb, const float* scales,
+                               const float* q, int64_t n_rows, int d_pad,
+                               int b, int64_t count, int k,
+                               int64_t rows_per_split, int splits,
+                               float* cand_vals, int* cand_idx, void* stream) {
+  tat::ScanExtras x{};
+  x.scales = scales;
+  return tat::launch_scan<int8_t, tat::kNoFilter>(
+      emb, q, n_rows, d_pad, b, count, k, rows_per_split, splits, x,
+      cand_vals, cand_idx, stream);
+}
+
+// K7: int8 rows with per-row scales and an i32 row mask.
+extern "C" int tat_topk_scan_mq(const int8_t* emb, const float* scales,
+                                const float* q, int64_t n_rows, int d_pad,
+                                int b, int64_t count, int k,
+                                int64_t rows_per_split, int splits,
+                                const int* mask, float* cand_vals,
+                                int* cand_idx, void* stream) {
+  tat::ScanExtras x{};
+  x.scales = scales;
+  x.mask = mask;
+  return tat::launch_scan<int8_t, tat::kMask>(
+      emb, q, n_rows, d_pad, b, count, k, rows_per_split, splits, x,
+      cand_vals, cand_idx, stream);
 }
 
 extern "C" int tat_topk_merge(const float* cand_vals, const int* cand_idx,

@@ -97,11 +97,24 @@ def build_shared(
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.tat_topk_scan.argtypes = [p, i32, p, i64, i32, i32, i64, i32, i64, i32, p, p, p]
-    lib.tat_topk_merge.argtypes = [p, p, i32, i32, i32, p, p, p]
-    lib.tat_bucket_maxima.argtypes = [p, i32, p, i64, i32, i32, i64, p, p]
-    lib.tat_rescore.argtypes = [p, i32, p, p, i64, i32, i32, i32, p, p]
-    for fn in (lib.tat_topk_scan, lib.tat_topk_merge, lib.tat_bucket_maxima, lib.tat_rescore):
+    # Every top-k scan takes (emb, dtype code or scales, q, n_rows, d_pad,
+    # b, count, k, rows_per_split, splits, <filter operands>, cand_vals,
+    # cand_idx, stream).
+    geometry = [p, i64, i32, i32, i64, i32, i64, i32]
+    tail = [p, p, p]
+    signatures = {
+        "tat_topk_scan": [p, i32, *geometry, *tail],
+        "tat_topk_scan_iv": [p, i32, *geometry, p, i32, *tail],
+        "tat_topk_scan_mask": [p, i32, *geometry, p, *tail],
+        "tat_topk_scan_q": [p, p, *geometry, *tail],
+        "tat_topk_scan_mq": [p, p, *geometry, p, *tail],
+        "tat_topk_merge": [p, p, i32, i32, i32, p, p, p],
+        "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, p, p],
+        "tat_rescore": [p, i32, p, p, i64, i32, i32, i32, p, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
 

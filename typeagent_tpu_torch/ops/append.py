@@ -3,6 +3,9 @@
 The embedding matrix is a padded ``[capacity, dim_pad]`` tensor with a
 host-side count watermark. Appends write in place; growth allocates the new
 capacity (doubling, or exact with a reserve hint) and copies the old rows.
+An int8 store keeps a per-row f32 scale buffer beside its rows: it grows
+with them, is padded with 1.0, and takes each append's scales in place at
+the same watermark.
 """
 
 from __future__ import annotations
@@ -10,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["make_buffer", "append_rows", "grow_buffer", "round_up"]
+__all__ = [
+    "make_buffer", "append_rows", "grow_buffer", "round_up", "make_scales", "grow_scales",
+]
 
 MIN_CAPACITY = 1024
 LANES = 128
@@ -33,7 +38,8 @@ def make_buffer(
 def append_rows(
     buf: torch.Tensor, rows: np.ndarray | torch.Tensor, count: int
 ) -> torch.Tensor:
-    """Write ``rows`` at offset ``count`` and return ``buf``.
+    """Write ``rows`` at offset ``count`` and return ``buf`` (a row buffer,
+    or an int8 store's 1-D scale buffer with its rows' scales).
 
     The JAX package's donated ``dynamic_update_slice`` becomes an in-place
     ``copy_`` into the slice: the buffer is updated where it lies, with no
@@ -70,4 +76,19 @@ def grow_buffer(
         return buf
     out = torch.zeros((cap, buf.shape[1]), dtype=buf.dtype, device=buf.device)
     out[: buf.shape[0]].copy_(buf)
+    return out
+
+
+def make_scales(capacity: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    """An int8 store's [capacity] f32 scale buffer, padded with 1.0."""
+    return torch.ones((capacity,), dtype=torch.float32, device=device)
+
+
+def grow_scales(scales: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The scale buffer padded with 1.0 to ``capacity`` (its rows' new
+    capacity); ``scales`` itself when it already has that length."""
+    if capacity <= scales.shape[0]:
+        return scales
+    out = make_scales(capacity, scales.device)
+    out[: scales.shape[0]].copy_(scales)
     return out

@@ -1,21 +1,28 @@
 """Exact cosine top-k over a padded embedding store.
 
 Public scores are ``clip((cos+1)/2, 0, 1)``; rows at or past the ``count``
-watermark never surface. Three CUDA kernels, written for Hopper
-(``csrc/``), carry the exact routes:
+watermark never surface. CUDA kernels written for Hopper (``csrc/``) carry
+the exact routes:
 
   * K1 ``fused_topk``: one-phase top-k (k <= 32) that never writes the
-    ``[b, n]`` score matrix to device memory;
+    ``[b, n]`` score matrix to device memory; its scoped and int8
+    variants share the scan (``csrc/topk.cu``):
+    K4 ``fused_topk_iv`` (rows inside <= 8 ``[start, stop)`` intervals),
+    K5 ``fused_topk_masked`` (rows whose i32 mask entry is > 0),
+    K6 ``fused_topk_q`` (int8 rows with per-row scales) and
+    K7 ``fused_topk_mq`` (K6 with K5's mask);
   * K2 ``bucket_maxima``: maximum raw cosine of each 128-row bucket, the
     selection phase of the two-phase ("exact2") search;
   * K3 ``rescore_selected``: exact f32 scores of each query's selected
     buckets, the second phase, which ends in a per-query certificate.
 
 Each kernel has a plain PyTorch version of the same function beside it
-(``topk_plain``, ``bucket_maxima_plain``, ``rescore_selected_plain``). A
-wrapper runs the plain version for a tensor on the CPU and launches its
-kernel for a CUDA tensor; there is no other fallback. Each wrapper counts
-its launches, so a run can show that the serving path went through it.
+(``topk_plain``, ``topk_iv_plain``, ``topk_masked_plain``,
+``topk_q_plain``, ``topk_mq_plain``, ``bucket_maxima_plain``,
+``rescore_selected_plain``). A wrapper runs the plain version for a tensor
+on the CPU and launches its kernel for a CUDA tensor; there is no other
+fallback. Each wrapper counts its launches, so a run can show that the
+serving path went through it.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import math
 import threading
 
+import numpy as np
 import torch
 
 from . import _build
@@ -40,11 +48,33 @@ __all__ = [
     "topk_plain",
     "bucket_maxima_plain",
     "rescore_selected_plain",
+    "intervals_to_rowmask",
+    "topk_program_masked",
+    "topk_program_intervals",
+    "quantize_rows",
+    "quantize_rows_device",
+    "cosine_scores_quantized",
+    "subset_cosine_topk_quantized",
+    "cosine_topk_quantized",
+    "topk_program_quantized",
+    "topk_program_masked_quantized",
+    "topk_program_intervals_quantized",
+    "fused_topk_iv",
+    "fused_topk_masked",
+    "fused_topk_q",
+    "fused_topk_mq",
+    "topk_iv_plain",
+    "topk_masked_plain",
+    "topk_q_plain",
+    "topk_mq_plain",
 ]
 
 # Largest k the fused kernel takes (the warp-held list has 32 lanes); a
 # larger k materializes the scores, as the JAX package does past its cap.
 _PALLAS_MAX_K = 32
+# Largest interval table K4 takes (the JAX kernel's SMEM table); larger
+# tables expand to a row mask and ride K5.
+_PALLAS_MAX_INTERVALS = 8
 _NEG = -1.0  # below any public score in [0, 1]
 _RAW_NEG = -3.0  # below any raw cosine in [-1, 1]
 _BUCKET_ROWS = 128
@@ -58,6 +88,10 @@ _HYBRID_SLACK = 14
 _EXACT2_SLACK = 6
 # Rows per chunk of the plain bucket maxima (bounds its score temporary).
 _PLAIN_CHUNK = 1 << 16
+# Rows per chunk of the plain top-k versions: bounds the [b, chunk] score
+# temporary and, for int8 stores, the f32 copy of the chunk's rows (a 30M
+# x 384 int8 store upcast in one piece would need 46 GB).
+_PLAIN_TOPK_CHUNK = 1 << 20
 # Kernel tile shape (csrc/tile.cuh).
 _QB = 32
 _RB = 128
@@ -81,11 +115,18 @@ class LaunchCounter:
 
 
 TOPK_LAUNCHES = LaunchCounter("topk")
+TOPK_IV_LAUNCHES = LaunchCounter("topk_iv")
+TOPK_MASK_LAUNCHES = LaunchCounter("topk_mask")
+TOPK_Q_LAUNCHES = LaunchCounter("topk_q")
+TOPK_MQ_LAUNCHES = LaunchCounter("topk_mq")
 BUCKET_MAXIMA_LAUNCHES = LaunchCounter("bucket_maxima")
 RESCORE_LAUNCHES = LaunchCounter("rescore")
 # Calls of the k > 32 route, which materializes scores (no kernel).
 MATERIALIZED_CALLS = LaunchCounter("materialized_topk")
-COUNTERS = (TOPK_LAUNCHES, BUCKET_MAXIMA_LAUNCHES, RESCORE_LAUNCHES, MATERIALIZED_CALLS)
+COUNTERS = (
+    TOPK_LAUNCHES, TOPK_IV_LAUNCHES, TOPK_MASK_LAUNCHES, TOPK_Q_LAUNCHES,
+    TOPK_MQ_LAUNCHES, BUCKET_MAXIMA_LAUNCHES, RESCORE_LAUNCHES, MATERIALIZED_CALLS,
+)
 
 
 def launch_counts() -> dict[str, int]:
@@ -118,8 +159,7 @@ def _store_code(emb: torch.Tensor) -> int:
     raise TypeError(f"store dtype must be float32 or bfloat16, got {emb.dtype}")
 
 
-def _check_cuda_operands(emb: torch.Tensor, queries: torch.Tensor) -> int:
-    """Validate a kernel launch's store and queries; return the dtype code."""
+def _check_geometry(emb: torch.Tensor, queries: torch.Tensor) -> None:
     if emb.device.type != "cuda":
         raise ValueError(f"no kernel for a store on {emb.device}")
     if queries.device != emb.device:
@@ -135,11 +175,65 @@ def _check_cuda_operands(emb: torch.Tensor, queries: torch.Tensor) -> int:
         raise ValueError(f"query width {queries.shape[1]} != store width {d_pad}")
     if d_pad % 32 or n_rows % _RB or n_rows >= 2**31:
         raise ValueError(f"unsupported store shape {tuple(emb.shape)}")
+
+
+def _check_cuda_operands(emb: torch.Tensor, queries: torch.Tensor) -> int:
+    """Validate a kernel launch's f32/bf16 store and queries; return the
+    dtype code."""
+    _check_geometry(emb, queries)
     return _store_code(emb)
+
+
+def _check_int8_operands(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor
+) -> None:
+    _check_geometry(emb_q, queries)
+    if emb_q.dtype != torch.int8:
+        raise TypeError(f"quantized store must be int8, got {emb_q.dtype}")
+    if (
+        scales.device != emb_q.device
+        or scales.dtype != torch.float32
+        or tuple(scales.shape) != (emb_q.shape[0],)
+        or not scales.is_contiguous()
+    ):
+        raise ValueError("scales must be a contiguous [n_rows] float32 tensor on the store's device")
+
+
+def _check_rowmask(rowmask: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """The mask as a flat [n_rows] int32 device tensor."""
+    mask = rowmask.reshape(-1)
+    if (
+        mask.device != emb.device
+        or mask.dtype != torch.int32
+        or mask.shape[0] != emb.shape[0]
+        or not mask.is_contiguous()
+    ):
+        raise ValueError("rowmask must be a contiguous [n_rows] int32 tensor on the store's device")
+    return mask
+
+
+def _check_intervals(intervals: torch.Tensor, emb: torch.Tensor) -> None:
+    if (
+        intervals.device != emb.device
+        or intervals.dtype != torch.int32
+        or intervals.dim() != 2
+        or intervals.shape[1] != 2
+        or intervals.shape[0] > _PALLAS_MAX_INTERVALS
+        or not intervals.is_contiguous()
+    ):
+        raise ValueError(
+            f"intervals must be a contiguous [s <= {_PALLAS_MAX_INTERVALS}, 2] "
+            "int32 tensor on the store's device"
+        )
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: raw scores by row chunk, lowest-row-tie selection
+# ---------------------------------------------------------------------------
 
 
 def _raw_scores(
@@ -155,39 +249,71 @@ def _raw_scores(
     return raw.masked_fill(ids[None, :] >= count, _RAW_NEG)
 
 
-# ---------------------------------------------------------------------------
-# K1: one-phase fused top-k
-# ---------------------------------------------------------------------------
+def _raw_scores_q(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+    count: int, start: int = 0, stop: int | None = None,
+) -> torch.Tensor:
+    """Masked raw cosines of int8 rows [start, stop): bf16-rounded queries
+    against the exactly upcast rows in f32, then each score times its
+    row's scale (the JAX kernel's ``raw * s_ref``)."""
+    rows = emb_q[start:stop]
+    q = queries.to(torch.bfloat16).float()
+    raw = (q @ rows.float().T) * scales[start:stop][None, :]
+    ids = torch.arange(start, start + rows.shape[0], device=emb_q.device)
+    return raw.masked_fill(ids[None, :] >= count, _RAW_NEG)
 
 
-def topk_plain(
-    emb: torch.Tensor, queries: torch.Tensor, count: int, k: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1: raw top-k ``([b, k] f32, [b, k] i32)``, values
-    descending, ties to the lowest row, unfilled slots ``(-3.0, -1)``."""
-    raw = _raw_scores(emb, queries, count)
+def _in_intervals(ids: torch.Tensor, intervals: torch.Tensor) -> torch.Tensor:
+    iv = intervals.to(ids.device)
+    return ((ids[:, None] >= iv[None, :, 0]) & (ids[:, None] < iv[None, :, 1])).any(dim=1)
+
+
+def _select_topk(raw: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of each row of ``raw`` ([b, m]): values descending, equal
+    values at ascending positions (the lowest row wins a tie)."""
     b = raw.shape[0]
     theta = torch.topk(raw, k, dim=1).values[:, k - 1 : k]
     above = raw > theta
     tied = raw == theta
     need = k - above.sum(dim=1, keepdim=True, dtype=torch.int32)
     take = above | (tied & (tied.cumsum(dim=1, dtype=torch.int32) <= need))
-    idx = take.nonzero()[:, 1].reshape(b, k)  # ascending rows per query
-    vals = raw.gather(1, idx)
+    pos = take.nonzero()[:, 1].reshape(b, k)  # ascending positions per row
+    vals = raw.gather(1, pos)
     order = torch.sort(vals, dim=1, descending=True, stable=True).indices
-    vals = vals.gather(1, order)
-    idx = idx.gather(1, order)
+    return vals.gather(1, order), pos.gather(1, order)
+
+
+def _topk_chunked(raw_of, n_rows: int, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw top-k over rows ``[0, n_rows)`` scored chunk by chunk by
+    ``raw_of(start, stop)``: each chunk's top-k (ties to its lowest row),
+    then one stable descending sort of the candidates, which keeps chunk
+    order, so ties stay at the lowest row. Unfilled slots are (-3, -1)."""
+    parts_v, parts_i = [], []
+    for start in range(0, n_rows, _PLAIN_TOPK_CHUNK):
+        stop = min(start + _PLAIN_TOPK_CHUNK, n_rows)
+        v, p = _select_topk(raw_of(start, stop), min(k, stop - start))
+        parts_v.append(v)
+        parts_i.append(p + start)
+    vals, idx = torch.cat(parts_v, dim=1), torch.cat(parts_i, dim=1)
+    if len(parts_v) > 1:
+        order = torch.sort(vals, dim=1, descending=True, stable=True).indices[:, :k]
+        vals, idx = vals.gather(1, order), idx.gather(1, order)
     return vals, torch.where(vals > -2.0, idx, -1).to(torch.int32)
 
 
-def fused_topk(
-    emb: torch.Tensor, queries: torch.Tensor, count: int, k: int
+# ---------------------------------------------------------------------------
+# K1, K4-K7: fused top-k scans (csrc/topk.cu)
+# ---------------------------------------------------------------------------
+
+
+def _launch_topk(
+    entry: str, counter: LaunchCounter, emb: torch.Tensor, head: tuple,
+    queries: torch.Tensor, count: int, k: int, tail: tuple = (),
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1 (``csrc/topk.cu``): raw top-k of ``queries`` over rows
-    ``[0, count)`` of ``emb``, as :func:`topk_plain` defines it."""
-    if emb.device.type == "cpu":
-        return topk_plain(emb, queries, count, k)
-    code = _check_cuda_operands(emb, queries)
+    """Launch one scan entry point of ``csrc/topk.cu`` and the merge:
+    ``entry(emb, *head, q, n_rows, d_pad, b, count, k, rows_per_split,
+    splits, *tail, cand_vals, cand_idx, stream)``. Operands are checked by
+    the caller."""
     if not 1 <= k <= _PALLAS_MAX_K:
         raise ValueError(f"fused top-k takes 1 <= k <= {_PALLAS_MAX_K}, got {k}")
     n_rows, d_pad = emb.shape
@@ -208,22 +334,163 @@ def fused_topk(
     lib = _build.kernels()
     stream = _stream(emb)
     _build.check(
-        lib.tat_topk_scan(
-            emb.data_ptr(), code, queries.data_ptr(), n_rows, d_pad, b, count,
-            k, tiles_per_split * _RB, splits, cand_v.data_ptr(),
+        getattr(lib, entry)(
+            emb.data_ptr(), *head, queries.data_ptr(), n_rows, d_pad, b, count,
+            k, tiles_per_split * _RB, splits, *tail, cand_v.data_ptr(),
             cand_i.data_ptr(), stream,
         ),
-        "topk scan",
+        f"{counter.name} scan",
     )
     _build.check(
         lib.tat_topk_merge(
             cand_v.data_ptr(), cand_i.data_ptr(), b, splits, k,
             out_v.data_ptr(), out_i.data_ptr(), stream,
         ),
-        "topk merge",
+        f"{counter.name} merge",
     )
-    TOPK_LAUNCHES.add()
+    counter.add()
     return out_v, out_i
+
+
+def topk_plain(
+    emb: torch.Tensor, queries: torch.Tensor, count: int, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1: raw top-k ``([b, k] f32, [b, k] i32)``, values
+    descending, ties to the lowest row, unfilled slots ``(-3.0, -1)``."""
+    return _topk_chunked(
+        lambda start, stop: _raw_scores(emb, queries, count, start, stop), emb.shape[0], k
+    )
+
+
+def fused_topk(
+    emb: torch.Tensor, queries: torch.Tensor, count: int, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 (``csrc/topk.cu``): raw top-k of ``queries`` over rows
+    ``[0, count)`` of ``emb``, as :func:`topk_plain` defines it."""
+    if emb.device.type == "cpu":
+        return topk_plain(emb, queries, count, k)
+    code = _check_cuda_operands(emb, queries)
+    return _launch_topk("tat_topk_scan", TOPK_LAUNCHES, emb, (code,), queries, count, k)
+
+
+def topk_iv_plain(
+    emb: torch.Tensor, queries: torch.Tensor, count: int,
+    intervals: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4: :func:`topk_plain` over the rows inside any
+    half-open ``[start, stop)`` row of ``intervals`` ([s, 2] int32;
+    ``(0, 0)`` padding rows select nothing)."""
+
+    def raw_of(start, stop):
+        ids = torch.arange(start, stop, device=emb.device)
+        raw = _raw_scores(emb, queries, count, start, stop)
+        return raw.masked_fill(~_in_intervals(ids, intervals)[None, :], _RAW_NEG)
+
+    return _topk_chunked(raw_of, emb.shape[0], k)
+
+
+def fused_topk_iv(
+    emb: torch.Tensor, queries: torch.Tensor, count: int,
+    intervals: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4 (``csrc/topk.cu``), as :func:`topk_iv_plain`; ``intervals`` has
+    at most 8 rows."""
+    if emb.device.type == "cpu":
+        return topk_iv_plain(emb, queries, count, intervals, k)
+    code = _check_cuda_operands(emb, queries)
+    _check_intervals(intervals, emb)
+    return _launch_topk(
+        "tat_topk_scan_iv", TOPK_IV_LAUNCHES, emb, (code,), queries, count, k,
+        (intervals.data_ptr(), intervals.shape[0]),
+    )
+
+
+def topk_masked_plain(
+    emb: torch.Tensor, queries: torch.Tensor, count: int,
+    rowmask: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5: :func:`topk_plain` over the rows whose
+    ``rowmask`` entry ([n_rows] or [1, n_rows]) is > 0."""
+    mask = rowmask.reshape(-1)
+
+    def raw_of(start, stop):
+        raw = _raw_scores(emb, queries, count, start, stop)
+        return raw.masked_fill(~(mask[start:stop] > 0)[None, :], _RAW_NEG)
+
+    return _topk_chunked(raw_of, emb.shape[0], k)
+
+
+def fused_topk_masked(
+    emb: torch.Tensor, queries: torch.Tensor, count: int,
+    rowmask: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 (``csrc/topk.cu``), as :func:`topk_masked_plain`; the mask is
+    int32."""
+    if emb.device.type == "cpu":
+        return topk_masked_plain(emb, queries, count, rowmask, k)
+    code = _check_cuda_operands(emb, queries)
+    mask = _check_rowmask(rowmask, emb)
+    return _launch_topk(
+        "tat_topk_scan_mask", TOPK_MASK_LAUNCHES, emb, (code,), queries, count,
+        k, (mask.data_ptr(),),
+    )
+
+
+def topk_q_plain(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+    count: int, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6: raw top-k over an int8 store with per-row
+    ``scales``, scored as :func:`_raw_scores_q` does."""
+    return _topk_chunked(
+        lambda start, stop: _raw_scores_q(emb_q, scales, queries, count, start, stop),
+        emb_q.shape[0], k,
+    )
+
+
+def fused_topk_q(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+    count: int, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 (``csrc/topk.cu``), as :func:`topk_q_plain`; queries are f32 and
+    the kernel rounds them to bf16."""
+    if emb_q.device.type == "cpu":
+        return topk_q_plain(emb_q, scales, queries, count, k)
+    _check_int8_operands(emb_q, scales, queries)
+    return _launch_topk(
+        "tat_topk_scan_q", TOPK_Q_LAUNCHES, emb_q, (scales.data_ptr(),), queries, count, k
+    )
+
+
+def topk_mq_plain(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+    count: int, rowmask: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7: :func:`topk_q_plain` over the rows whose
+    ``rowmask`` entry is > 0."""
+    mask = rowmask.reshape(-1)
+
+    def raw_of(start, stop):
+        raw = _raw_scores_q(emb_q, scales, queries, count, start, stop)
+        return raw.masked_fill(~(mask[start:stop] > 0)[None, :], _RAW_NEG)
+
+    return _topk_chunked(raw_of, emb_q.shape[0], k)
+
+
+def fused_topk_mq(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+    count: int, rowmask: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7 (``csrc/topk.cu``), as :func:`topk_mq_plain`; the mask is
+    int32."""
+    if emb_q.device.type == "cpu":
+        return topk_mq_plain(emb_q, scales, queries, count, rowmask, k)
+    _check_int8_operands(emb_q, scales, queries)
+    mask = _check_rowmask(rowmask, emb_q)
+    return _launch_topk(
+        "tat_topk_scan_mq", TOPK_MQ_LAUNCHES, emb_q, (scales.data_ptr(),), queries,
+        count, k, (mask.data_ptr(),),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -345,12 +612,21 @@ def cosine_scores(emb: torch.Tensor, queries: torch.Tensor, count: int) -> torch
     return torch.where(valid, scores, _NEG)
 
 
-def _topk_materialized(emb, queries, count: int, k: int):
-    """k > 32: scores materialized, then ``torch.topk`` (the JAX package's
-    own non-Pallas route). Masked slots score -1."""
+def _topk_materialized(
+    scores: torch.Tensor, k: int, rowmask: torch.Tensor | None = None
+):
+    """k > 32: ``torch.topk`` over a materialized ``[b, n]`` score matrix
+    (the JAX package's own non-Pallas route); masked slots score -1. With
+    a ``rowmask``, rows whose entry is not > 0 score -1 too and invalid
+    slots carry index -1, as the JAX masked routes return them."""
     MATERIALIZED_CALLS.add()
-    vals, idx = torch.topk(cosine_scores(emb, queries, count), k, dim=1)
-    return vals, idx.to(torch.int32)
+    if rowmask is not None:
+        scores = scores.masked_fill(~(rowmask.reshape(1, -1) > 0), _NEG)
+    vals, idx = torch.topk(scores, k, dim=1)
+    idx = idx.to(torch.int32)
+    if rowmask is not None:
+        idx = torch.where(vals >= 0.0, idx, -1)
+    return vals, idx
 
 
 def cosine_topk(
@@ -361,7 +637,151 @@ def cosine_topk(
     k = min(k, emb.shape[0])
     if k <= _PALLAS_MAX_K:
         return _raw_to_score(*fused_topk(emb, queries, count, k))
-    return _topk_materialized(emb, queries, count, k)
+    return _topk_materialized(cosine_scores(emb, queries, count), k)
+
+
+def intervals_to_rowmask(n: int, intervals: torch.Tensor) -> torch.Tensor:
+    """[1, n] int32 membership mask of the UNION of half-open row intervals
+    ([s, 2] int32), on the intervals' device.
+
+    O(n log s) via sort + cummax + searchsorted, no [n, s] intermediate:
+    row r is in the union iff r < max(stop | start <= r). Correct for
+    unsorted and overlapping tables; (0, 0) padding rows select nothing.
+    """
+    starts = intervals[:, 0]
+    order = torch.argsort(starts, stable=True)
+    sorted_starts = starts[order].contiguous()
+    cum_stops = torch.cummax(intervals[:, 1][order], dim=0).values
+    rows = torch.arange(n, dtype=torch.int32, device=intervals.device)
+    pos = torch.searchsorted(sorted_starts, rows, right=True) - 1
+    stop_at = cum_stops[pos.clamp(0, sorted_starts.shape[0] - 1)]
+    return ((pos >= 0) & (rows < stop_at)).to(torch.int32)[None, :]
+
+
+def topk_program_masked(
+    emb: torch.Tensor, queries: torch.Tensor, count: int,
+    rowmask: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-masked exact top-k: ``rowmask`` ([n] or [1, n] int32, > 0 =
+    searchable) rides K5, with no table-size cap; k > 32 materializes."""
+    k = min(k, emb.shape[0])
+    if k <= _PALLAS_MAX_K:
+        return _raw_to_score(*fused_topk_masked(emb, queries, count, rowmask, k))
+    return _topk_materialized(cosine_scores(emb, queries, count), k, rowmask)
+
+
+def topk_program_intervals(
+    emb: torch.Tensor, queries: torch.Tensor, count: int,
+    intervals: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interval-scoped exact top-k. ``intervals``: [s_pad, 2] int32
+    half-open (start, stop) row spans, padding rows (0, 0). A table of at
+    most 8 rows rides K4; a larger one expands to a row mask on the device
+    (:func:`intervals_to_rowmask`) and rides K5; k > 32 materializes."""
+    k = min(k, emb.shape[0])
+    if k <= _PALLAS_MAX_K and intervals.shape[0] <= _PALLAS_MAX_INTERVALS:
+        return _raw_to_score(*fused_topk_iv(emb, queries, count, intervals, k))
+    return topk_program_masked(
+        emb, queries, count, intervals_to_rowmask(emb.shape[0], intervals), k
+    )
+
+
+# ---------------------------------------------------------------------------
+# int8 store routes: rows stored as int8 with per-row scales
+# ---------------------------------------------------------------------------
+
+
+def quantize_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 quantization: returns (q [n,d] i8, scales
+    [n] f32); round half to even, scale 1.0 for an all-zero row."""
+    rows = np.asarray(rows, dtype=np.float32)
+    scales = np.abs(rows).max(axis=1) / 127.0
+    scales = np.where(scales > 0, scales, 1.0).astype(np.float32)
+    q = np.clip(np.round(rows / scales[:, None]), -127, 127).astype(np.int8)
+    return q, scales
+
+
+# XLA compiles the JAX device quantizer's ``max / 127.0`` into a multiply by
+# the f32 reciprocal, which differs from numpy's division by one ulp in a few
+# percent of scales; each port twin matches its own JAX twin bit for bit.
+_INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def quantize_rows_device(rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """On-device twin of :func:`quantize_rows` (bulk ingest of
+    device-resident rows), bit for bit the JAX ``quantize_rows_device``:
+    the scale is ``max|row| * f32(1/127)``, not a division."""
+    rows = rows.float()
+    scales = rows.abs().amax(dim=1) * _INV_127
+    scales = torch.where(scales > 0, scales, 1.0)
+    q = torch.round(rows / scales[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, scales
+
+
+def cosine_scores_quantized(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor, count: int
+) -> torch.Tensor:
+    """Full masked score matrix for an int8 store (predicate paths); f32
+    queries, as the JAX function scores them."""
+    raw = queries.float() @ emb_q.float().T
+    scores = ((raw * scales[None, :] + 1.0) * 0.5).clamp(0.0, 1.0)
+    valid = torch.arange(emb_q.shape[0], device=emb_q.device)[None, :] < count
+    return torch.where(valid, scores, _NEG)
+
+
+def subset_cosine_topk_quantized(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+    ordinals: torch.Tensor, valid: torch.Tensor, k: int,
+):
+    """Top-k of an int8 store restricted to a padded ordinal subset;
+    ``valid`` marks real entries, padding scores -1."""
+    k = min(k, ordinals.shape[0])
+    safe = ordinals.clamp(0, emb_q.shape[0] - 1).long()
+    raw = queries.float() @ emb_q[safe].float().T
+    scores = ((raw * scales[safe][None, :] + 1.0) * 0.5).clamp(0.0, 1.0)
+    scores = torch.where(valid[None, :], scores, _NEG)
+    vals, pos = torch.topk(scores, k, dim=1)
+    return vals, ordinals[pos].to(torch.int32)
+
+
+def topk_program_quantized(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+    count: int, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched exact top-k over an int8 store: K6 (bf16 queries, as the
+    JAX kernel takes them) for k <= 32, else the materialized route with
+    f32 queries (the JAX XLA route)."""
+    k = min(k, emb_q.shape[0])
+    if k <= _PALLAS_MAX_K:
+        return _raw_to_score(*fused_topk_q(emb_q, scales, queries, count, k))
+    return _topk_materialized(cosine_scores_quantized(emb_q, scales, queries, count), k)
+
+
+# The JAX package's store-level name for the same route.
+cosine_topk_quantized = topk_program_quantized
+
+
+def topk_program_masked_quantized(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+    count: int, rowmask: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-masked top-k over an int8 store: K7 for k <= 32."""
+    k = min(k, emb_q.shape[0])
+    if k <= _PALLAS_MAX_K:
+        return _raw_to_score(*fused_topk_mq(emb_q, scales, queries, count, rowmask, k))
+    return _topk_materialized(
+        cosine_scores_quantized(emb_q, scales, queries, count), k, rowmask
+    )
+
+
+def topk_program_intervals_quantized(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
+    count: int, intervals: torch.Tensor, k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interval-scoped top-k over an int8 store: the table always expands
+    to a row mask on the device and rides K7, as in the JAX package."""
+    rowmask = intervals_to_rowmask(emb_q.shape[0], intervals)
+    return topk_program_masked_quantized(emb_q, scales, queries, count, rowmask, k)
 
 
 def _exact2_phase2_rescore(
@@ -431,7 +851,7 @@ def subset_cosine_topk(
 
 
 # ROADMAP.md Queue 1 items that port the other engine modes.
-_MODE_ITEMS = {"quantized": 7, "approx": 8}
+_MODE_ITEMS = {"approx": 8}
 
 
 def topk_many(
@@ -441,7 +861,9 @@ def topk_many(
     """R query batches ``[R, b_pad, d_pad]`` in one launch per kernel:
     queries are independent, so the batches are stacked into one
     ``[R*b_pad, d_pad]`` block and the outputs reshaped back to
-    ``[R, b_pad, k]`` (plus ``[R, b_pad]`` certificates for exact2)."""
+    ``[R, b_pad, k]`` (plus ``[R, b_pad]`` certificates for exact2).
+    ``aux`` is the bf16 shadow for ``exact2h`` and the per-row scales for
+    ``quantized`` (an int8 store)."""
     r_n, b_pad, d_pad = qs.shape
     flat = qs.reshape(r_n * b_pad, d_pad)
     if mode == "exact1":
@@ -454,6 +876,8 @@ def topk_many(
         out = cosine_topk_exact2_hybrid(
             emb, aux, flat, count, k, slack=_HYBRID_SLACK if slack is None else slack
         )
+    elif mode == "quantized":
+        out = topk_program_quantized(emb, aux, flat, count, k)
     elif mode in _MODE_ITEMS:
         raise NotImplementedError(
             f"engine mode {mode!r} is not ported yet "

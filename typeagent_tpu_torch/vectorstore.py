@@ -7,12 +7,15 @@ table, lazy embedding-size adoption.
 
   * Embeddings live on the device as a padded ``[capacity, dim_pad]``
     tensor with a count watermark; appends write in place
-    (``ops/append.py``).
+    (``ops/append.py``). An int8 store (``dtype="int8"``) quantizes each
+    row (per-row symmetric scale) on append and keeps the scales in a
+    second buffer beside the rows.
   * Lookups are batched: one kernel route per query batch
     (``ops/topk.py``). Below ``EXACT2_MIN_ROWS`` rows the one-phase kernel
     runs; at or above it, the two-phase exact2 search (bf16-shadow bucket
     selection plus exact f32 rescore for f32 stores), whose certificate
-    misses rerun the one-phase kernel for the queries that missed.
+    misses rerun the one-phase kernel for the queries that missed. An
+    int8 store always runs its one-phase kernel (K6).
   * Small appends buffer on the host and flush before the next lookup.
 
 ``TextEmbeddingIndexSettings.device`` names the device. ``"cpu"`` runs
@@ -56,11 +59,10 @@ _SUBSET_MIN_BUCKET = 64
 # still to be measured (ROADMAP.md Queue 1 item 3).
 EXACT2_MIN_ROWS = 131_072
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 _SEARCH_MODES = ("exact", "exact1", "exact2")
 # ROADMAP.md Queue 1 items that port the settings this store refuses.
 _NOT_PORTED = {
-    "int8": "dtype='int8' (ROADMAP.md Queue 1 item 7)",
     "approx": "search_mode='approx' (ROADMAP.md Queue 1 item 8)",
     "ivf": "search_mode='ivf' (ROADMAP.md Queue 1 item 8)",
     "mesh": "mesh= (ROADMAP.md Queue 1 item 9)",
@@ -124,8 +126,9 @@ class TextEmbeddingIndexSettings:
     """Runtime settings for embedding-backed fuzzy lookup.
 
     ``dtype`` is the device buffer's type (``float32``, the parity
-    default, or ``bfloat16``); ``search_mode`` is ``exact`` (routes by row
-    count), ``exact1`` or ``exact2``; ``device`` is where the store lives.
+    default, ``bfloat16`` or ``int8``); ``search_mode`` is ``exact``
+    (routes by row count), ``exact1`` or ``exact2``; ``device`` is where
+    the store lives.
     """
 
     def __init__(
@@ -146,16 +149,18 @@ class TextEmbeddingIndexSettings:
                 "the HTTP embedding adapters are not ported yet; pass "
                 "embedding_model= (e.g. models.adapters.create_test_embedding_model())"
             )
-        if dtype == "int8":
-            raise NotImplementedError(_NOT_PORTED["int8"])
         if dtype not in _DTYPES:
-            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype!r}")
+            raise ValueError(f"dtype must be float32, bfloat16 or int8, got {dtype!r}")
+        if search_mode in ("approx", "ivf") and dtype == "int8":
+            raise ValueError(f"search_mode={search_mode!r} supports float32/bfloat16 stores only")
         if search_mode in ("approx", "ivf"):
             raise NotImplementedError(_NOT_PORTED[search_mode])
         if search_mode not in _SEARCH_MODES:
             raise ValueError(f"unknown search_mode {search_mode!r}")
         if mesh is not None:
             raise NotImplementedError(_NOT_PORTED["mesh"])
+        if query_wire == "int8" and dtype != "bfloat16":
+            raise ValueError("query_wire='int8' requires dtype='bfloat16'")
         if query_wire == "int8":
             raise NotImplementedError(_NOT_PORTED["query_wire"])
         if query_wire != "auto":
@@ -199,12 +204,14 @@ class VectorStore:
         self._model = settings.embedding_model
         self._device = settings.device
         self._dtype = _DTYPES[settings.dtype]
+        self._quantized = self._dtype == torch.int8
         # bf16 selection shadow: one (key, shadow) tuple, swapped whole so a
         # serving thread never pairs a key with another buffer's shadow.
         self._shadow_cache: tuple | None = None
         self._embedding_size = 0
         self._dim_pad = 0
         self._buf: torch.Tensor | None = None
+        self._scales: torch.Tensor | None = None  # per-row scales (int8)
         self._count = 0  # rows committed to the device buffer
         self._reserve_hint = 0  # known final size (see reserve())
         self._pending: list[np.ndarray] = []  # host rows awaiting flush
@@ -319,16 +326,20 @@ class VectorStore:
                 )
 
     def _set_buffer(self, buf: torch.Tensor) -> None:
-        """Adopt a new (grown) buffer; the old shadow describes the old one."""
+        """Adopt a new (grown) buffer; the old shadow describes the old one,
+        and an int8 store's scales grow with it."""
         if buf is not self._buf:
             self._shadow_cache = None
+            if self._quantized:
+                self._scales = append.grow_scales(self._scales, buf.shape[0])
         self._buf = buf
 
     def _ensure_capacity_locked(self, n: int) -> None:
         if self._buf is None:
-            self._buf = append.make_buffer(
-                self._initial_capacity(n), self._dim_pad, self._dtype, self._device
-            )
+            cap = self._initial_capacity(n)
+            self._buf = append.make_buffer(cap, self._dim_pad, self._dtype, self._device)
+            if self._quantized:
+                self._scales = append.make_scales(cap, self._device)
         elif self._count + n > self._buf.shape[0]:
             self._set_buffer(
                 append.grow_buffer(
@@ -340,7 +351,8 @@ class VectorStore:
         """Bulk-adopt embedding rows already on the store's device (an
         on-device encoder, a checkpoint restore): padded and cast there,
         with no host round trip. Rows must be L2-normalized
-        ``[n, embedding_size]`` f32 or bf16."""
+        ``[n, embedding_size]`` f32 or bf16; an int8 store quantizes them
+        on the device."""
         if rows.device.type != self._device.type:
             raise ValueError(f"rows on {rows.device}, store on {self._device}")
         n, size = rows.shape
@@ -355,8 +367,39 @@ class VectorStore:
             if n == 0:
                 return
             self._ensure_capacity_locked(n)
+            if self._quantized:
+                rows, row_scales = topk.quantize_rows_device(rows)
+                append.append_rows(self._scales, row_scales, self._count)
             self._buf[self._count : self._count + n, :size].copy_(rows)
             self._count += n
+
+    def adopt_quantized(self, q_rows: np.ndarray, scales: np.ndarray) -> None:
+        """Replace an int8 store's contents with already quantized state:
+        int8 rows ``[count, embedding_size]`` and f32 scales ``[count]``
+        (for example a JAX int8 store's ``_buf``/``_scales``). Unlike
+        :meth:`deserialize`, which quantizes dequantized rows again, the
+        bytes are kept as given."""
+        if not self._quantized:
+            raise ValueError("adopt_quantized needs an int8 store")
+        q_rows = np.array(q_rows, dtype=np.int8)  # a writable copy for torch
+        scales = np.array(scales, dtype=np.float32)
+        n, size = q_rows.shape
+        if scales.shape != (n,):
+            raise ValueError(f"scales of shape {scales.shape} for {n} rows")
+        self.clear()
+        if self._embedding_size == 0:
+            self._set_embedding_size(size)
+        if size != self._embedding_size:
+            raise ValueError(
+                f"Embedding size mismatch: expected {self._embedding_size}, got {size}"
+            )
+        if n == 0:
+            return
+        with self._flush_lock:
+            self._ensure_capacity_locked(n)
+            self._buf[:n, :size].copy_(torch.from_numpy(q_rows))
+            append.append_rows(self._scales, scales, 0)
+            self._count = n
 
     def _flush(self) -> None:
         with self._flush_lock:
@@ -371,11 +414,12 @@ class VectorStore:
         the attributes piecemeal could pair an old buffer with a new count.
         Launches made under the lock are ordered on the stream before any
         later in-place append; fetch results OUTSIDE the ``with`` block so
-        ingest never waits on a device round trip.
+        ingest never waits on a device round trip. Yields ``(buf, scales,
+        count)``; ``scales`` is None unless the store is int8.
         """
         with self._flush_lock:
             self._flush_locked()
-            yield self._buf, self._count
+            yield self._buf, self._scales, self._count
 
     def _take_pending(self) -> np.ndarray | None:
         """Atomically detach the pending rows for a flush."""
@@ -395,6 +439,10 @@ class VectorStore:
         padded = np.zeros((n, self._dim_pad), dtype=np.float32)
         padded[:, : self._embedding_size] = rows
         self._ensure_capacity_locked(n)
+        if self._quantized:
+            # int8 rows quantize on the host from f32, as in the JAX store.
+            padded, row_scales = topk.quantize_rows(padded)
+            append.append_rows(self._scales, row_scales, self._count)
         # f32 rows go up as they are; a bf16 buffer casts them on the device.
         append.append_rows(self._buf, padded, self._count)
         self._count += n
@@ -464,15 +512,15 @@ class VectorStore:
         if min_score is None:
             min_score = 0.0
         b = queries.shape[0]
-        with self._dispatch_view() as (buf, count):
+        with self._dispatch_view() as (buf, scales, count):
             if count == 0 or b == 0:
                 return [[] for _ in range(b)]
             q = self._pad_queries(queries)
             if predicate is not None:
-                scores_dev = topk.cosine_scores(buf, q, count)
+                scores_dev = self._all_scores(q, buf, scales, count)
             else:
                 k = min(max_hits, count)
-                vals, idx, cert = self._topk_dispatch(q, k, buf, count)
+                vals, idx, cert = self._topk_dispatch(q, k, buf, scales, count)
         if predicate is not None:
             # Host-callback path: the full masked score matrix, then the
             # predicate over candidates above the threshold.
@@ -491,13 +539,22 @@ class VectorStore:
             vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b)
         return _materialize_rows(vals, idx, b, min_score)
 
-    def _topk_dispatch(self, q: torch.Tensor, k: int, buf: torch.Tensor, count: int):
+    def _all_scores(self, q: torch.Tensor, buf: torch.Tensor, scales, count: int):
+        """Full masked score matrix (the host-predicate path)."""
+        if self._quantized:
+            return topk.cosine_scores_quantized(buf, scales, q, count)
+        return topk.cosine_scores(buf, q, count)
+
+    def _topk_dispatch(self, q: torch.Tensor, k: int, buf: torch.Tensor, scales, count: int):
         """Launch the engine route WITHOUT waiting for it.
 
-        ``(buf, count)`` come from one :meth:`_dispatch_view` capture (call
-        this inside the ``with`` block). Returns ``(vals, idx, cert)``
-        device tensors; ``cert`` is None for the one-phase route.
+        ``(buf, scales, count)`` come from one :meth:`_dispatch_view`
+        capture (call this inside the ``with`` block). Returns ``(vals, idx,
+        cert)`` device tensors; ``cert`` is None for the one-phase routes.
         """
+        if self._quantized:
+            vals, idx = topk.cosine_topk_quantized(buf, scales, q, count, k)
+            return vals, idx, None
         if self._use_exact2(k, count):
             if self._dtype == torch.float32:
                 # Hybrid: bf16-shadow bucket selection (half the bytes of an
@@ -563,8 +620,10 @@ class VectorStore:
             count = self._count
         return mode == "exact" and count >= EXACT2_MIN_ROWS and k <= topk._PALLAS_MAX_K
 
-    def _engine_mode(self, k: int, buf: torch.Tensor, count: int):
+    def _engine_mode(self, k: int, buf: torch.Tensor, scales, count: int):
         """Engine mode and auxiliary operand for :func:`ops.topk.topk_many`."""
+        if self._quantized:
+            return "quantized", scales
         if self._use_exact2(k, count):
             if self._dtype == torch.float32:
                 return "exact2h", self._shadow(buf, count)
@@ -619,14 +678,14 @@ class VectorStore:
         if qb.ndim != 3:
             raise ValueError(f"Expected [R, b, d] query batches, got {qb.shape}")
         r_n, b = qb.shape[0], qb.shape[1]
-        with self._dispatch_view() as (buf, count):
+        with self._dispatch_view() as (buf, scales, count):
             if count == 0 or r_n == 0 or b == 0:
                 return [[[] for _ in range(b)] for _ in range(r_n)]
             padded = np.zeros((r_n, _bucket(b), self._dim_pad), dtype=np.float32)
             padded[:, :b, : self._embedding_size] = qb
             q_dev = torch.from_numpy(padded).to(self._device)
             k = min(max_hits, count)
-            mode, aux = self._engine_mode(k, buf, count)
+            mode, aux = self._engine_mode(k, buf, scales, count)
             out = topk.topk_many(buf, aux, q_dev, count, k=k, mode=mode)
         fetched = _fetch(*out)
         vals, idx = fetched[0], fetched[1]
@@ -654,7 +713,7 @@ class VectorStore:
     def dispatch_lookup(self, queries: np.ndarray, max_hits: int = 10) -> tuple | None:
         """Launch a batched lookup and return device handles without
         waiting; pair with :meth:`collect_lookup`."""
-        with self._dispatch_view() as (buf, count):
+        with self._dispatch_view() as (buf, scales, count):
             if count == 0 or queries.shape[0] == 0:
                 return None
             q = self._pad_queries(queries)
@@ -662,7 +721,7 @@ class VectorStore:
             # The certificate is checked at collect time (reading it here
             # would wait for the device). The dispatch-time row count rides
             # the handle so a miss rerun scores the same store state.
-            vals, idx, cert = self._topk_dispatch(q, k, buf, count)
+            vals, idx, cert = self._topk_dispatch(q, k, buf, scales, count)
             if cert is not None:
                 return (vals, idx, queries.shape[0], cert, q, k, count)
             return (vals, idx, queries.shape[0])
@@ -685,7 +744,7 @@ class VectorStore:
     ) -> tuple[torch.Tensor, torch.Tensor] | list[ScoredInt]:
         """Launch a subset top-k; returns (vals, idx) device handles, or a
         finished empty list for the trivial case."""
-        with self._dispatch_view() as (buf, count):
+        with self._dispatch_view() as (buf, scales, count):
             if not ordinals_of_subset or count == 0:
                 return []
             s = len(ordinals_of_subset)
@@ -698,13 +757,11 @@ class VectorStore:
             # k from the PADDED size, as the JAX package does: padding slots
             # score -1 and are dropped at collect.
             k = min(max_hits, s_pad)
-            return topk.subset_cosine_topk(
-                buf,
-                q,
-                torch.from_numpy(ords).to(self._device),
-                torch.from_numpy(valid).to(self._device),
-                k,
-            )
+            ords_dev = torch.from_numpy(ords).to(self._device)
+            valid_dev = torch.from_numpy(valid).to(self._device)
+            if self._quantized:
+                return topk.subset_cosine_topk_quantized(buf, scales, q, ords_dev, valid_dev, k)
+            return topk.subset_cosine_topk(buf, q, ords_dev, valid_dev, k)
 
     @staticmethod
     def _subset_collect(vals: np.ndarray, idx: np.ndarray, min_score: float) -> list[ScoredInt]:
@@ -781,6 +838,7 @@ class VectorStore:
     def clear(self) -> None:
         with self._flush_lock:
             self._buf = None
+            self._scales = None
             self._shadow_cache = None
             self._count = 0
             with self._pending_lock:
@@ -788,7 +846,11 @@ class VectorStore:
                 self._pending_rows = 0
 
     def _device_rows(self, start: int, stop: int) -> np.ndarray:
-        return self._buf[start:stop, : self._embedding_size].float().cpu().numpy()
+        """Committed rows [start, stop) as host f32 (dequantized for int8)."""
+        rows = self._buf[start:stop, : self._embedding_size].float()
+        if self._quantized:
+            rows = rows * self._scales[start:stop, None]
+        return rows.cpu().numpy()
 
     def host_rows(self, start: int, stop: int) -> np.ndarray:
         """Live rows [start, stop) as host f32, O(stop - start)."""
@@ -815,7 +877,8 @@ class VectorStore:
 
     def serialize(self) -> np.ndarray:
         """All live rows as a host f32 array ``[len, embedding_size]`` (the
-        JAX store's format, so either package reads the other's output)."""
+        JAX store's format, so either package reads the other's output);
+        an int8 store's rows come out dequantized."""
         parts = []
         if self._count and self._buf is not None:
             parts.append(self._device_rows(0, self._count))
