@@ -7,13 +7,15 @@ Phases, one JSON line each:
 
   0. device and build: torch version, the card's name and power limit,
      seconds to build the kernels from ``typeagent_tpu_torch/csrc``;
-  1. each kernel (K1 top-k, K2 bucket maxima, K3 rescore, K4 interval
-     top-k, K5 row-masked top-k, K6 int8 top-k, K7 int8 row-masked top-k)
-     against its plain PyTorch version on the card, over d, b, k, dtype, a
-     ragged count, exact duplicate rows across split and interval edges,
-     1, 8 and 9 intervals (overlapping, (0, 0)-padded, one holding the
-     count watermark) and a one-bucket cluster, at 65,536 rows and (K4-K7)
-     at 1M x 384 (later phases check each kernel again at their shapes);
+  1. each kernel (K1 top-k, K2 bucket maxima, K2' bucket argmax, K3
+     rescore, K4 interval top-k, K5 row-masked top-k, K6 int8 top-k, K7
+     int8 row-masked top-k) against its plain PyTorch version on the card,
+     over d, b, k, dtype, a ragged count, exact duplicate rows across split,
+     bucket and interval edges and inside one bucket, 1, 8 and 9 intervals
+     (overlapping, (0, 0)-padded, one holding the count watermark), a
+     one-bucket cluster and a store of one bucket, at 65,536 rows and
+     (K4-K7) at 1M x 384 (later phases check each kernel again at their
+     shapes);
   2. the main path at full width: a 1M x 384 f32 store ingested in 10
      chunks while it answers lookups, then served through LookupBatcher
      (64 concurrent requests), one batch-256 sync lookup and one keyed
@@ -30,7 +32,23 @@ Phases, one JSON line each:
      scoped to one conversation (8 intervals, K4), to two (9 intervals
      after merging, row mask + K5) and to a 100k-row subset (K5);
   7. the int8 corpus at 30,000,000 x 384 in the same layout (the f32 one
-     freed first): global (K6), one and two conversations (row mask, K7).
+     freed first): global (K6), one and two conversations (row mask, K7);
+  8. search_mode="approx" at 1M x 384, f32 and bf16 stores, b=256 k=10,
+     served through LookupBatcher and sync (the K2' bucket route), and a
+     100k-row store (the K1 route); recall@10 against the plain exact
+     top-k, K2' against its plain version at these shapes, and batch
+     latency beside the exact route on the same rows;
+  9. search_mode="ivf" on the clustered corpus of bench.py section B, made
+     on the card: 1,000,000 x 384 bf16, 1,000 topics, sigma 0.35, 2%
+     isotropic background, topic queries, ivf_build(outlier_frac=0.03,
+     rows_per_cluster=512): build seconds and buckets; recall@10 against
+     the exact1 oracle, certificate rate and batch-256 latency at B = 8, 12,
+     16; certified answers held to the oracle; 10% more rows appended
+     (the suffix rides K4 and is found), a background rebuild swapped in;
+     b=256 served through LookupBatcher. Then 10,000,000 x 384 with 10,000
+     topics: build seconds, recall and B=16 latency beside exact1, and the
+     certified pipeline. Each scale warms its serving routes first
+     (warm_serving: every batch bucket, the escalation pass, the rerun).
 
 Each corpus search is checked three ways: the API's hits are the kernel's
 output on the same operands, that output agrees with the plain version
@@ -73,7 +91,14 @@ CORPUS_F32_SEG_ROWS = 416_000  # 24 x 416,000 = 9,984,000 rows
 CORPUS_INT8_SEG_ROWS = 1_250_000  # 24 x 1,250,000 = 30,000,000 rows
 CORPUS_CHUNK = 500_000  # rows made on the card per append_device
 CORPUS_B = 64
-KERNELS = ("topk", "bucket_maxima", "rescore", "topk_iv", "topk_mask", "topk_q", "topk_mq")
+KERNELS = ("topk", "bucket_maxima", "bucket_argmax", "rescore", "topk_iv", "topk_mask", "topk_q",
+           "topk_mq")
+# bench.py section B's clustered corpus: (rows, topics) per scale.
+SIGMA_C, BG_C = 0.35, 0.02
+IVF_SCALES = ((1_000_000, 1_000), (10_000_000, 10_000))
+IVF_BS = (8, 12, 16)
+IVF_QUERIES = 1024  # 4 batches of 256
+IVF_CHUNK = 500_000  # rows made on the card per step
 
 
 def emit(obj: dict) -> None:
@@ -111,7 +136,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from typeagent_tpu_torch.models.adapters import create_test_embedding_model
-    from typeagent_tpu_torch.ops import _build, topk
+    from typeagent_tpu_torch.ops import _build, ivf, topk
     from typeagent_tpu_torch.parallel import CorpusVectorStore
     from typeagent_tpu_torch.serve import LookupBatcher
     from typeagent_tpu_torch.utils.metrics import METRICS
@@ -175,6 +200,7 @@ def main() -> int:
 
     plain_of = {
         "fused_topk": topk.topk_plain, "bucket_maxima": topk.bucket_maxima_plain,
+        "bucket_argmax": topk.bucket_argmax_plain,
         "rescore_selected": topk.rescore_selected_plain, "fused_topk_iv": topk.topk_iv_plain,
         "fused_topk_masked": topk.topk_masked_plain, "fused_topk_q": topk.topk_q_plain,
         "fused_topk_mq": topk.topk_mq_plain,
@@ -247,6 +273,31 @@ def main() -> int:
             require(len(set(live.tolist())) == live.size, f"{what}: duplicate index")
         return err
 
+    def check_argmax(emb, q, count, tol, what):
+        """K2' against its plain version: values within tol; dead buckets
+        (-3, -1); every reported row live, in its bucket and scoring the
+        reported value; rows equal to the plain version's except where the
+        bucket's two best raw scores lie within tol. Returns the max value
+        error."""
+        gv, gi = topk.bucket_argmax(emb, q, count)
+        pv, pi = topk.bucket_argmax_plain(emb, q, count)
+        err = (gv - pv).abs().max().item()
+        require(err <= tol, f"{what}: max value error {err} > {tol}")
+        nb = gv.shape[1]
+        bucket = torch.arange(nb, device=dev)
+        dead = (bucket * 128 >= count)[None, :].expand_as(gi)
+        require(bool((gv[dead] == -3.0).all() and (gi[dead] == -1).all()), f"{what}: dead buckets")
+        live = ~dead
+        require(bool(((gi // 128 == bucket) & (gi < count))[live].all()), f"{what}: a row outside its bucket")
+        raw = topk._raw_scores(emb, q, count).view(q.shape[0], nb, 128)
+        picked = raw.view(q.shape[0], -1).gather(1, gi.clamp(min=0).long())
+        require(bool(((picked - gv).abs() <= tol)[live].all()), f"{what}: a reported value is not the row's")
+        top2 = raw.topk(2, dim=2).values
+        differ = gi != pi
+        require(bool((top2[..., 0] - top2[..., 1] <= tol)[differ].all()),
+                f"{what}: argmax differs from the plain version off a near-tie")
+        return err
+
     def check_results(rows, queries, buf, count, k, tol, what):
         """Served ScoredInt rows vs the plain exact f32 top-k on the card:
         recall 1.0 except for ties within tol. Returns (strict recall,
@@ -304,8 +355,13 @@ def main() -> int:
         # Exact duplicates spread across row splits (tie rule, merge).
         dup_rows = list(range(100, count, 5000))[:12]
         m[dup_rows] = m[dup_rows[0]]
+        # Duplicates inside one bucket (300, 301, 383) and across a bucket
+        # edge (511 | 512): K2''s lowest-row rule.
+        m[[301, 383]] = m[300]
+        m[512] = m[511]
         qs = normed(rng, 256, d)
         qs[0] = m[dup_rows[0]]
+        qs[1], qs[2] = m[300], m[511]
         for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             emb = padded_store(m, n_pad, dtype)
             for b in (1, 8, 256):
@@ -327,6 +383,13 @@ def main() -> int:
                 require(err <= tol, f"K2 d={d} b={b} {dtype}: error {err}")
                 require(bool((got[:, -2:] == -3.0).all()), "K2: masked buckets not -3")
                 kernel_err["bucket_maxima"] = max(kernel_err["bucket_maxima"], err)
+                what = f"K2' d={d} b={b} {dtype}"
+                err = check_argmax(emb, q, count, tol, what)
+                kernel_err["bucket_argmax"] = max(kernel_err["bucket_argmax"], err)
+                if b >= 8:
+                    _, gi = topk.bucket_argmax(emb, q, count)
+                    require(gi[1, 2].item() == 300 and gi[2, 3].item() == 511 and gi[2, 4].item() == 512,
+                            f"{what}: tie rule {gi[1, 2].item()} {gi[2, 3].item()} {gi[2, 4].item()}")
                 for B in (1, 24, 46):
                     ids = torch.stack([
                         torch.randperm(n_pad // 128, device=dev)[:B] for _ in range(b)
@@ -357,6 +420,13 @@ def main() -> int:
     require(set(idx[0].tolist()) == set(ref_i[0].tolist()), "cluster: exact2 != exact1")
     require(all(256 <= i < 288 for i in idx[0].tolist()), "cluster: rows outside the cluster")
     checks += 1
+    # A store of one bucket, ragged: K2' over 77 live rows of 128.
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+        emb = padded_store(normed(rng, 128, D_MAIN), 128, dtype)
+        q = to_dev(normed(rng, 8, D_MAIN))
+        err = check_argmax(emb, q, 77, tol, f"K2' one bucket {dtype}")
+        kernel_err["bucket_argmax"] = max(kernel_err["bucket_argmax"], err)
+        checks += 1
 
     # K4-K7. Query 0 is a row duplicated across row-split and interval
     # edges (and once past the count watermark), so the lowest-row tie rule
@@ -783,6 +853,276 @@ def main() -> int:
     gc.collect()  # the f32 corpus is gone before the int8 one is built
     torch.cuda.empty_cache()
     emit(corpus_phase(7, "int8", CORPUS_INT8_SEG_ROWS, TOL_INT8, 0.999, False))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def padded_queries(q_host: np.ndarray, d_pad: int) -> torch.Tensor:
+        q = torch.zeros((q_host.shape[0], d_pad), device=dev)
+        q[:, : q_host.shape[1]] = to_dev(q_host)
+        return q
+
+    def recall_vs(rows, ref_idx: np.ndarray) -> float:
+        """Recall@k of served ScoredInt rows against reference indices."""
+        hit = sum(len({x.item for x in row} & set(ref.tolist())) for row, ref in zip(rows, ref_idx))
+        return hit / ref_idx.size
+
+    def serve_batches(s, batches):
+        """The batches concurrently through one LookupBatcher."""
+        async def run():
+            batcher = LookupBatcher(s, max_delay_ms=2.0)
+            out = await asyncio.gather(*(batcher.lookup(r, max_hits=K_MAIN) for r in batches))
+            stats = batcher.stats()
+            await batcher.close()
+            return out, stats
+        return asyncio.run(run())
+
+    # -------------------------------------------------- 8. approx, 1M rows
+    torch.cuda.reset_peak_memory_stats()
+    rows = torch.nn.functional.normalize(torch.randn((N_MAIN, D_MAIN), generator=gen, device=dev), dim=1)
+    approx_q = [normed(rng, 256, D_MAIN) for _ in range(4)]
+    stores = {}
+    for dtype in ("float32", "bfloat16"):
+        stores[dtype] = VectorStore(store_settings(dtype=dtype, mode="approx"))
+        stores[dtype].load_device_rows(rows)
+    small = VectorStore(store_settings(mode="approx"))
+    small.load_device_rows(rows[:100_000])
+    del rows
+    METRICS.counters.clear()
+    topk.reset_launch_counts()
+    served_a, sync_a, stats_a = {}, {}, {}
+    for dtype, s_approx in stores.items():
+        served_a[dtype], stats_a[dtype] = serve_batches(s_approx, approx_q)
+        sync_a[dtype] = s_approx.fuzzy_lookup_embeddings_batch(approx_q[0], max_hits=K_MAIN)
+    counts_1m = topk.launch_counts()
+    add_path_launches(counts_1m)
+    require(counts_1m["bucket_argmax"] > 0 and counts_1m["topk"] == 0 and counts_1m["bucket_maxima"] == 0,
+            f"approx 1M: route {counts_1m}")
+    topk.reset_launch_counts()
+    small_rows = small.fuzzy_lookup_embeddings_batch(approx_q[0], max_hits=K_MAIN)
+    counts_small = topk.launch_counts()
+    add_path_launches(counts_small)
+    require(counts_small["topk"] > 0 and counts_small["bucket_argmax"] == 0,
+            f"approx 100k: route {counts_small}")
+    routes = {k: METRICS.counters.get(f"topk.approx_route.{k}", 0) for k in ("bucket", "exact")}
+    out8 = {"phase": 8, "rows": N_MAIN, "d": D_MAIN, "b": 256, "k": K_MAIN,
+            "launches_1m": counts_1m, "launches_100k": counts_small, "route_choices": routes,
+            "batcher": stats_a}
+    def lookup_as(s, mode):
+        """A batch-256 lookup of the store searched in ``mode``."""
+        def run():
+            s.settings.search_mode = mode
+            s.fuzzy_lookup_embeddings_batch(approx_q[0], max_hits=K_MAIN)
+        return run
+
+    qd8 = padded_queries(approx_q[0], stores["float32"]._buf.shape[1])
+    for dtype, s_approx in stores.items():
+        tol = TOL_F32 if dtype == "float32" else TOL_BF16
+        buf, count = s_approx._buf, s_approx._count
+        err = check_argmax(buf, qd8, count, tol, f"K2' 1M {dtype}")
+        kernel_err["bucket_argmax"] = max(kernel_err["bucket_argmax"], err)
+        # Recall against the plain exact top-k of the same rows.
+        ref_idx = []
+        for q_host in approx_q:
+            _, ri = topk.topk_plain(buf, padded_queries(q_host, buf.shape[1]), count, K_MAIN)
+            ref_idx.append(ri.cpu().numpy())
+        served_rows = [row for batch in served_a[dtype] for row in batch]
+        require([[x.item for x in r] for r in served_a[dtype][0]] == [[x.item for x in r] for r in sync_a[dtype]],
+                f"approx {dtype}: served and sync answers differ")
+        with plain_kernels():
+            plain_rows = s_approx.fuzzy_lookup_embeddings_batch(approx_q[0], max_hits=K_MAIN)
+        for a, r in zip(sync_a[dtype], plain_rows):
+            require(np.allclose([x.score for x in a], [x.score for x in r], atol=tol, rtol=0),
+                    f"approx {dtype}: scores differ from the plain route")
+        ms_k, ms_p = in_turns(cuda_ms, lambda: topk.bucket_argmax(buf, qd8, count),
+                              lambda: topk.bucket_argmax_plain(buf, qd8, count))
+        if dtype == "float32":
+            kernel_ms["bucket_argmax"] = (ms_k, ms_p)
+        # The exact route on the same store (hybrid exact2 for f32, exact2
+        # for bf16) beside the approx route.
+        ms_approx, ms_exact = in_turns(host_ms, lookup_as(s_approx, "approx"), lookup_as(s_approx, "exact"))
+        s_approx.settings.search_mode = "approx"
+        _, ms_plain = in_turns(host_ms, batch_lookup(s_approx), plain_lookup(s_approx))
+        out8[dtype] = {
+            "recall_served": recall_vs(served_rows, np.concatenate(ref_idx)),
+            "recall_sync": recall_vs(sync_a[dtype], ref_idx[0]),
+            "k2p_max_abs_err": err, "k2p_ms": ms_k, "k2p_plain_ms": ms_p,
+            "ms_per_batch256": ms_approx, "exact_route_ms_per_batch256": ms_exact,
+            "plain_ms_per_batch256": ms_plain,
+        }
+        require(out8[dtype]["recall_served"] >= 0.99, f"approx {dtype}: recall {out8[dtype]['recall_served']}")
+    _, small_ref = topk.topk_plain(small._buf, qd8, small._count, K_MAIN)
+    out8["recall_100k"] = recall_vs(small_rows, small_ref.cpu().numpy())
+    require(out8["recall_100k"] == 1.0, f"approx 100k (exact K1): recall {out8['recall_100k']}")
+    out8["peak_mem_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    out8["ok"] = True
+    emit(out8)
+    del stores, small, s_approx, buf, qd8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------- 9. IVF on the clustered corpus
+    def clustered(n: int, topics: int, n_queries: int):
+        """bench.py section B's corpus on the card: unit rows around
+        ``topics`` unit centres (sigma 0.35 / sqrt(d) per coordinate), 2%
+        isotropic background, bf16; topic queries made the same way and
+        rounded to bf16, so the exact1 oracle (which scores bf16 queries
+        on a bf16 store) and the rescore (f32 queries) score one query."""
+        centers = torch.nn.functional.normalize(torch.randn((topics, D_MAIN), generator=gen, device=dev), dim=1)
+        out = torch.empty((n, D_MAIN), dtype=torch.bfloat16, device=dev)
+        for s0 in range(0, n, IVF_CHUNK):
+            m = min(IVF_CHUNK, n - s0)
+            lab = torch.randint(0, topics, (m,), generator=gen, device=dev)
+            e = centers[lab] + SIGMA_C * torch.randn((m, D_MAIN), generator=gen, device=dev) / D_MAIN ** 0.5
+            bg = torch.rand((m,), generator=gen, device=dev) < BG_C
+            e = torch.where(bg[:, None], torch.randn((m, D_MAIN), generator=gen, device=dev), e)
+            out[s0 : s0 + m] = torch.nn.functional.normalize(e, dim=1).to(torch.bfloat16)
+        lab = torch.randint(0, topics, (n_queries,), generator=gen, device=dev)
+        q = centers[lab] + SIGMA_C * torch.randn((n_queries, D_MAIN), generator=gen, device=dev) / D_MAIN ** 0.5
+        q = torch.nn.functional.normalize(q, dim=1).to(torch.bfloat16).float()
+        return out, q.cpu().numpy()
+
+    def oracle(buf, count, q_host):
+        """exact1 (K1 over the store) for every 256-query batch."""
+        ids = []
+        for s0 in range(0, q_host.shape[0], 256):
+            _, i = topk.cosine_topk(buf, padded_queries(q_host[s0 : s0 + 256], buf.shape[1]), count, K_MAIN)
+            ids.append(i.cpu().numpy())
+        return np.concatenate(ids)
+
+    def certified_equal(rows, q_host, ref_idx, buf, what):
+        """Every served answer is the exact1 top-k up to ties within
+        TOL_BF16 (raw cosines of the picked rows, recomputed on the card)."""
+        require(all(len(r) == K_MAIN for r in rows), f"{what}: short answers")
+        got = np.array([[x.item for x in r] for r in rows], dtype=np.int64)
+        q = padded_queries(q_host, buf.shape[1])
+        raw_got = picked_raw(buf, None, q, to_dev(got))
+        raw_kth = picked_raw(buf, None, q, to_dev(ref_idx[:, -1:].astype(np.int64)))
+        extra = ~(got[:, :, None] == ref_idx[:, None, :]).any(axis=2)
+        ok = (raw_got >= raw_kth - TOL_BF16).cpu().numpy() | ~extra
+        require(bool(ok.all()), f"{what}: queries {np.nonzero(~ok.all(axis=1))[0][:8].tolist()} not exact")
+        return int(extra.any(axis=1).sum())
+
+    def ivf_scale(n: int, topics: int, full: bool):
+        """One clustered scale; ``full`` adds every B, the append, rebuild
+        and serving steps (the 1M scale)."""
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rows, q_host = clustered(n, topics, IVF_QUERIES)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        s = VectorStore(store_settings(dtype="bfloat16", mode="ivf"))
+        s.settings.ivf_outlier_frac = 0.03
+        s.reserve(n + (n // 10 if full else 0))
+        s.load_device_rows(rows)
+        del rows
+        for name in list(METRICS.latencies):
+            if name.startswith("ivf.build."):
+                del METRICS.latencies[name]
+        t0 = time.perf_counter()
+        s.build_ivf(rows_per_cluster=512)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        state = s._ivf
+        out = {"rows": n, "topics": topics, "gen_s": round(gen_s, 3), "build_s": round(build_s, 3),
+               "build_phases_s": {k.split(".")[-1]: round(METRICS.stats(k).total_s, 3)
+                                  for k in list(METRICS.latencies) if k.startswith("ivf.build.")},
+               "buckets": state.n_buckets, "inliers": state.count_in, "outliers": state.count_out}
+        buf, count = s._buf, s._count
+        # Serving warm-up: a lookup per batch bucket, then the certificate-
+        # miss routes (the 4x-B escalation pass, the exact rerun) once.
+        t0 = time.perf_counter()
+        s.warm_serving(max_batch=256)
+        torch.cuda.synchronize()
+        out["warm_serving_s"] = round(time.perf_counter() - t0, 3)
+        ref_idx = oracle(buf, count, q_host)
+        qd = padded_queries(q_host[:256], buf.shape[1])
+        out["exact1_ms_per_batch256"] = cuda_ms(lambda: topk.cosine_topk(buf, qd, count, K_MAIN), iters=3)
+        # The approx route on the clustered layout (phase 8 measured it on
+        # isotropic rows).
+        approx_idx = np.concatenate([
+            topk.cosine_topk_bucket(buf, padded_queries(q_host[s0 : s0 + 256], buf.shape[1]), count, K_MAIN)[1]
+            .cpu().numpy() for s0 in range(0, IVF_QUERIES, 256)])
+        out["approx_recall"] = float(np.mean([len(set(a) & set(b)) / K_MAIN
+                                              for a, b in zip(approx_idx.tolist(), ref_idx.tolist())]))
+        for B in (IVF_BS if full else IVF_BS[-1:]):
+            s.settings.ivf_b = B
+            ids, certs = [], []
+            for s0 in range(0, IVF_QUERIES, 256):
+                _, i, c = ivf.ivf_topk_program(*state, padded_queries(q_host[s0 : s0 + 256], buf.shape[1]),
+                                               K_MAIN, B=B)
+                ids.append(i.cpu().numpy())
+                certs.append(c.cpu().numpy())
+            ids = np.concatenate(ids)
+            out[f"B{B}"] = {
+                "recall": float(np.mean([len(set(a) & set(b)) / K_MAIN for a, b in zip(ids.tolist(), ref_idx.tolist())])),
+                "cert_rate": float(np.concatenate(certs).mean()),
+                "ms_per_batch256": host_ms(lambda: s.fuzzy_lookup_embeddings_batch(q_host[:256], max_hits=K_MAIN), iters=5),
+                "device_ms_per_batch256": cuda_ms(lambda: ivf.ivf_topk_program(*state, qd, K_MAIN, B=B), iters=5),
+            }
+        # Certified: every answer equals the oracle (misses rerun exactly,
+        # past 2M rows after one escalated pass).
+        s.settings.ivf_certified = True
+        s.settings.ivf_b = 12 if full else 16
+        METRICS.counters.clear()
+        t0 = time.perf_counter()
+        cert_rows = []
+        for s0 in range(0, IVF_QUERIES, 256):
+            cert_rows += s.fuzzy_lookup_embeddings_batch(q_host[s0 : s0 + 256], max_hits=K_MAIN)
+        cert_s = time.perf_counter() - t0
+        ties = certified_equal(cert_rows, q_host, ref_idx, buf, f"ivf certified {n}")
+        out["certified"] = {
+            "answers_differing_from_oracle_by_ties": ties,
+            "B": s.settings.ivf_b, "ms_per_batch256": cert_s * 1000 / (IVF_QUERIES // 256),
+            "cert_queries": METRICS.counters.get("vectorstore.cert_queries", 0),
+            "cert_misses": METRICS.counters.get("vectorstore.cert_misses", 0),
+            "escalation_yield_ema": s._esc_ema, "recall": recall_vs(cert_rows, ref_idx),
+        }
+        s.settings.ivf_certified = False
+        if full:
+            out.update(ivf_lifecycle(s, n, topics, q_host))
+        out["peak_mem_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+        return out
+
+    def ivf_lifecycle(s, n, topics, q_host):
+        """The counted main path of phase 9: serving through LookupBatcher
+        on the snapshot, 10% appended (the suffix rides K4 and its rows are
+        found), and a background rebuild that swaps in while serving."""
+        s.settings.ivf_b = 16
+        topk.reset_launch_counts()
+        served, stats = serve_batches(s, [q_host[i : i + 256] for i in range(0, IVF_QUERIES, 256)])
+        extra, _ = clustered(n // 10, topics, 0)
+        s.load_device_rows(extra)
+        probes = extra[:64].float().cpu().numpy()
+        hits = s.fuzzy_lookup_embeddings_batch(probes, max_hits=K_MAIN)
+        suffix_counts = topk.launch_counts()
+        require(suffix_counts["topk_iv"] > 0, f"ivf append: the suffix never ran K4 ({suffix_counts})")
+        require(all(h[0].item == n + j and h[0].score >= 0.99 for j, h in enumerate(hits)),
+                f"ivf append: appended rows not found {[h[0].item for h in hits[:4]]}")
+        t0 = time.perf_counter()
+        thread = s.build_ivf_background(rows_per_cluster=512)
+        during = s.fuzzy_lookup_embeddings_batch(probes, max_hits=K_MAIN)
+        thread.join(timeout=600)
+        require(not thread.is_alive() and s._ivf_count == n + n // 10,
+                f"ivf rebuild: snapshot covers {s._ivf_count} rows")
+        rebuild_s = time.perf_counter() - t0
+        iv_before = topk.launch_counts()["topk_iv"]
+        after = s.fuzzy_lookup_embeddings_batch(probes, max_hits=K_MAIN)
+        counts = topk.launch_counts()
+        add_path_launches(counts)
+        require(counts["topk_iv"] == iv_before, "ivf rebuild: the swapped snapshot still scans a suffix")
+        require(counts["rescore"] > 0 and counts["bucket_maxima"] > 0, f"ivf: route {counts}")
+        for rows in (during, after):
+            require(all(h[0].item == n + j for j, h in enumerate(rows)), "ivf rebuild: appended rows lost")
+        return {"launches": counts, "batcher": stats, "served_queries": sum(len(b) for b in served),
+                "appended": n // 10, "rebuild_s": round(rebuild_s, 3)}
+
+    out9 = {"phase": 9, "b": 256, "k": K_MAIN, "outlier_frac": 0.03, "rows_per_cluster": 512}
+    for (n, topics), full in zip(IVF_SCALES, (True, False)):
+        out9[f"{n / 1e6:g}M"] = ivf_scale(n, topics, full)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out9["ok"] = True
+    emit(out9)
 
     # --------------------------------------------------------------- summary
     for name in KERNELS:
@@ -790,6 +1130,7 @@ def main() -> int:
     sources = {
         "topk": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:116"),
         "bucket_maxima": ("csrc/bucket_maxima.cu", "typeagent_tpu/ops/topk.py:1064"),
+        "bucket_argmax": ("csrc/bucket_maxima.cu", "typeagent_tpu/ops/topk.py:1101"),
         "rescore": ("csrc/rescore.cu", "typeagent_tpu/ops/topk.py:1334"),
         "topk_iv": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:386"),
         "topk_mask": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:511"),

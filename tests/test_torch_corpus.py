@@ -272,13 +272,11 @@ def test_reserve_and_growth_pad_scales_with_one():
 def test_unported_settings_name_their_roadmap_item(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 9"):
         CorpusVectorStore(DIM, device="cpu", mesh=object())
-    for mode in ("approx", "ivf"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            CorpusVectorStore(DIM, device="cpu", search_mode=mode)
+    for mode in ("approx", "ivf"):  # ported: accepted, int8 refused as in JAX
+        assert CorpusVectorStore(DIM, device="cpu", search_mode=mode)._store.search_mode == mode
         with pytest.raises(ValueError):
             ShardedVectorStore(DIM, dtype="int8", search_mode=mode, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CorpusVectorStore(DIM, device="cpu").build_ivf()
+    CorpusVectorStore(DIM, device="cpu").build_ivf()  # an empty store: a no-op, as in JAX
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CorpusVectorStore(DIM)  # device="cuda" by default: no CPU fallback

@@ -86,6 +86,87 @@ def test_bucket_maxima_matches_plain(dev, dtype):
     assert bool((got[:, -(6144 - 5120) // 128 :] == -3.0).all())
 
 
+def _near_tie(raw, tol):
+    """[..., 128] raw bucket scores -> whether the two best lie within tol."""
+    top2 = raw.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_pad,count,b", [(6144, 5000 - 37, 37), (6144, 6144, 64), (128, 77, 5)])
+def test_bucket_argmax_matches_plain(dev, dtype, n_pad, count, b):
+    rng = np.random.default_rng(13)
+    d = 384
+    emb = _store(rng, n_pad, min(count + 200, n_pad), d, dtype, dev)  # data past the watermark
+    q = _queries(rng, b, d, dev)
+    if n_pad > 1024:
+        # Duplicates inside a bucket (300, 301, 383) and across an edge (511 | 512).
+        emb[[301, 383]] = emb[300].clone()
+        emb[512] = emb[511].clone()
+        q[0], q[1] = emb[300].float(), emb[511].float()
+    topk.reset_launch_counts()
+    gv, gi = topk.bucket_argmax(emb, q, count)
+    pv, pi = topk.bucket_argmax_plain(emb, q, count)
+    torch.cuda.synchronize()
+    counts = topk.launch_counts()
+    assert counts["bucket_argmax"] == 1 and counts["bucket_maxima"] == 0
+    tol = TOL[dtype]
+    assert (gv - pv).abs().max().item() <= tol
+    assert gi.dtype == torch.int32 and tuple(gi.shape) == (b, n_pad // 128)
+    dead = torch.arange(n_pad // 128, device=dev) * 128 >= count
+    assert bool((gv[:, dead] == -3.0).all()) and bool((gi[:, dead] == -1).all())
+    raw = topk._raw_scores(emb, q, count).view(b, -1, 128)
+    differ = gi != pi
+    assert bool(_near_tie(raw, tol)[differ].all())
+    # The kernel's row scores what it reported.
+    picked = raw.reshape(b, -1).gather(1, gi.clamp(min=0).long())
+    assert bool(((picked - gv).abs() <= tol)[~dead.expand_as(gi)].all())
+    if n_pad > 1024:
+        assert gi[0, 2].item() == 300 and gi[1, 3].item() == 511 and gi[1, 4].item() == 512
+
+
+def test_bucket_maxima_and_argmax_agree(dev):
+    """K2 and K2' are one template: the same maxima from either form."""
+    rng = np.random.default_rng(14)
+    for dtype in (torch.float32, torch.bfloat16):
+        emb = _store(rng, 4096, 4000, 384, dtype, dev)
+        q = _queries(rng, 70, 384, dev)
+        vals, idx = topk.bucket_argmax(emb, q, 4000)
+        assert torch.equal(vals, topk.bucket_maxima(emb, q, 4000))
+
+
+@pytest.mark.parametrize("mode", ["approx", "ivf"])
+def test_approx_and_ivf_stores_on_cuda_match_cpu_stores(dev, mode):
+    """approx at the crossover (the K2' bucket route) and certified IVF (K3
+    for phase 2, K2 + K3 for the tail): the card answers as the CPU does."""
+    rng = np.random.default_rng(15)
+    n = topk.APPROX_BUCKET_MIN_ROWS if mode == "approx" else 3000
+    m = rng.standard_normal((n, 64)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    q = m[:6] + 0.05
+    out = {}
+    topk.reset_launch_counts()
+    for device in ("cpu", "cuda"):
+        s = VectorStore(TextEmbeddingIndexSettings(
+            embedding_model=create_test_embedding_model(64), min_score=0.0,
+            search_mode=mode, device=device,
+        ))
+        s.settings.ivf_certified = True
+        s.add_embeddings(None, m)
+        if mode == "ivf":
+            s.build_ivf(rows_per_cluster=128, train_rows=1024, iters=3)
+        out[device] = s.fuzzy_lookup_embeddings_batch(q, max_hits=10)
+    counts = topk.launch_counts()
+    if mode == "approx":
+        assert counts["bucket_argmax"] == 1
+    else:
+        assert counts["rescore"] >= 1 and counts["bucket_maxima"] >= 1
+    for a, b in zip(out["cpu"], out["cuda"]):
+        np.testing.assert_allclose([x.score for x in a], [x.score for x in b], atol=2e-6)
+        kth = a[-1].score
+        assert all(x.item in {y.item for y in a} or abs(x.score - kth) <= 2e-6 for x in b)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rescore_matches_plain(dev, dtype):
     rng = np.random.default_rng(4)

@@ -56,6 +56,8 @@ def test_package_has_the_slice_modules():
         "typeagent_tpu_torch.serve",
         "typeagent_tpu_torch.parallel.sharded",
         "typeagent_tpu_torch.parallel.corpus",
+        "typeagent_tpu_torch.ops.ivf",
+        "typeagent_tpu_torch.parallel.ivf",
     ):
         assert name in MODULES
 
@@ -87,8 +89,9 @@ def test_import_compiles_nothing():
 
 
 def test_new_modules_import_without_jax():
-    """The corpus store and the scoped/int8 routes import in a process where
-    importing jax, ml_dtypes, pydantic or httpx fails."""
+    """The corpus store, the scoped/int8 and approx routes and the IVF
+    modules import in a process where importing jax, ml_dtypes, pydantic or
+    httpx fails."""
     code = (
         "import builtins\n"
         "real = builtins.__import__\n"
@@ -102,7 +105,10 @@ def test_new_modules_import_without_jax():
         "    del sys.modules[m]\n"
         "from typeagent_tpu_torch.parallel import CorpusVectorStore, ShardedVectorStore\n"
         "from typeagent_tpu_torch.ops.topk import (fused_topk_iv, fused_topk_masked, fused_topk_q,\n"
-        "    fused_topk_mq, intervals_to_rowmask, quantize_rows_device)\n"
+        "    fused_topk_mq, intervals_to_rowmask, quantize_rows_device, bucket_argmax,\n"
+        "    cosine_topk_approx)\n"
+        "from typeagent_tpu_torch.ops.ivf import IVFState, ivf_build, ivf_topk, adopt_ivf_state\n"
+        "from typeagent_tpu_torch.parallel.ivf import ShardedIVF, build_sharded_ivf\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))

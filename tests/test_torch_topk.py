@@ -323,11 +323,19 @@ def test_topk_many_matches_jax(rng, mode):
         np.testing.assert_array_equal(tout[1][r][:6].numpy(), single[1][:6].numpy())
 
 
-@pytest.mark.parametrize("mode", ["approx"])
+@pytest.mark.parametrize("mode", ["approx", "ivf"])
 def test_topk_many_unported_modes_name_their_roadmap_item(mode):
+    """Every engine mode of the JAX ``topk_many`` is ported: "approx" runs
+    (exact K1 route at this size, as JAX's approx_max_k off the TPU); IVF is
+    not a ``topk_many`` mode in either package (the store routes it)."""
     emb = torch.zeros((1024, 128))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        topk.topk_many(emb, None, torch.zeros((1, 8, 128)), 10, k=5, mode=mode)
+    qs = torch.zeros((1, 8, 128))
+    if mode == "approx":
+        vals, idx = topk.topk_many(emb, None, qs, 10, k=5, mode=mode)
+        assert tuple(vals.shape) == tuple(idx.shape) == (1, 8, 5)
+    else:
+        with pytest.raises(ValueError, match="unknown mode"):
+            topk.topk_many(emb, None, qs, 10, k=5, mode=mode)
 
 
 def test_wrappers_refuse_non_cpu_non_cuda_operands():

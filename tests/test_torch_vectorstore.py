@@ -358,9 +358,9 @@ def test_warm_serving_runs_each_bucket(rng):
 
 def test_settings_refuse_unported_modes_and_missing_device():
     model = create_test_embedding_model(8)
+    for mode in ("approx", "ivf"):  # ported
+        assert TextEmbeddingIndexSettings(embedding_model=model, device="cpu", search_mode=mode).search_mode == mode
     for kw, item in (
-        ({"search_mode": "approx"}, "item 8"),
-        ({"search_mode": "ivf"}, "item 8"),
         ({"mesh": object()}, "item 9"),
         ({"query_wire": "int8", "dtype": "bfloat16"}, "item 7"),
     ):
@@ -439,3 +439,19 @@ def test_concurrent_appends_and_lookups_never_see_phantom_rows(rng):
     for r, row in enumerate(final):
         for hit in row:
             assert hit.score == pytest.approx(vs_mod.cosine_to_score(float(rows[hit.item] @ q[r])), abs=1e-6)
+
+
+def test_cert_queries_count_real_queries_not_padding(rng):
+    """The many route resolves certificates over its R x b_pad population,
+    but ``vectorstore.cert_queries`` counts real queries: R=3 batches of
+    b=5 (padded to 8) are 15 queries, not 24."""
+    from typeagent_tpu_torch.utils.metrics import METRICS
+
+    d = 16
+    store = port_store(d, search_mode="exact2")
+    store.add_embeddings(None, _normed(rng, 2000, d))
+    qs = _normed(rng, 15, d).reshape(3, 5, d)
+    before = METRICS.counters.get("vectorstore.cert_queries", 0)
+    rows = store.fuzzy_lookup_embeddings_many(qs, max_hits=4)
+    assert [len(r) for r in rows] == [5, 5, 5]
+    assert METRICS.counters["vectorstore.cert_queries"] - before == 15

@@ -1,8 +1,18 @@
-// K2: per-bucket (128 consecutive rows) maximum raw cosine, maxima only.
+// K2: per-bucket (128 consecutive rows) maximum raw cosine; K2': the same
+// with the argmax row of each bucket.
 //
-// Replaces: typeagent_tpu/ops/topk.py  _topk_bucket_kernel in its
-//   with_idx=False form, launched by _bucket_maxima_pallas (phase 1 of the
-//   exact2 and hybrid exact2 searches).
+// Replaces: typeagent_tpu/ops/topk.py  _topk_bucket_kernel, launched by
+//   _bucket_maxima_pallas: with_idx=False (K2, phase 1 of the exact2 and
+//   hybrid exact2 searches) and with_idx=True (K2', the bucketed approx
+//   search cosine_topk_bucket). Both forms are one template: the argmax
+//   code is compiled only into the WITH_IDX=true instances, so a
+//   maxima-only launch runs the same code as before K2' existed.
+//
+// Argmax rule: the lowest row among equal maxima (jnp.argmax in the JAX
+//   kernel). Each thread scans its own rows in ascending order keeping the
+//   first strict maximum, and every cross-lane or cross-warp combine takes
+//   the lower row on equal values, so the rule holds whatever the order of
+//   the reduction. A bucket with no live row gives (-3, -1).
 //
 // What bounds it on an H100: phase 1 reads the store (n*d*itemsize bytes:
 //   0.77 GB for the 1M x 384 bf16 shadow, 0.23 ms at 3.35 TB/s) and does
@@ -36,11 +46,22 @@ namespace tat {
 // f32 stores: FFMA tile
 // ---------------------------------------------------------------------------
 
+// (value, row) pair of a running argmax: the larger value wins, the lower
+// row wins a tie. A pair with no live row is (RAW_NEG, -1); since every
+// live score is > RAW_NEG, such a pair never beats a live one.
+__device__ __forceinline__ void argmax_combine(float& m, int& r, float om, int orow) {
+  if (om > m || (om == m && (unsigned)orow < (unsigned)r)) {
+    m = om;
+    r = orow;
+  }
+}
+
+template <bool WITH_IDX>
 __global__ void __launch_bounds__(THREADS)
     bucket_maxima_f32_kernel(const float* __restrict__ emb,
                              const float* __restrict__ q, int64_t n_rows,
                              int d_pad, int b, int64_t count, float* out,
-                             int64_t nb) {
+                             int* out_idx, int64_t nb) {
   __shared__ TileSmem s;
   const int n_qb = (b + QB - 1) / QB;
   const int qb = (int)(blockIdx.x % n_qb);
@@ -56,18 +77,37 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float m = RAW_NEG;
+    int row = -1;  // argmax row (WITH_IDX only)
     if (live) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < 4; ++j) {  // this lane's rows, ascending
         const int64_t r = r0 + lane + 32 * j;
-        if (r < count) m = fmaxf(m, acc[i][j]);
+        if (r < count) {
+          if (WITH_IDX) {
+            if (acc[i][j] > m) {
+              m = acc[i][j];
+              row = (int)r;
+            }
+          } else {
+            m = fmaxf(m, acc[i][j]);
+          }
+        }
       }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+    for (int off = 16; off > 0; off >>= 1) {
+      const float om = __shfl_xor_sync(FULL, m, off);
+      if (WITH_IDX) {
+        argmax_combine(m, row, om, __shfl_xor_sync(FULL, row, off));
+      } else {
+        m = fmaxf(m, om);
+      }
+    }
     const int gq = q0 + warp * 4 + i;
-    if (lane == 0 && gq < b) out[(int64_t)gq * nb + bucket] = m;
+    if (lane == 0 && gq < b) {
+      out[(int64_t)gq * nb + bucket] = m;
+      if (WITH_IDX) out_idx[(int64_t)gq * nb + bucket] = row;
+    }
   }
 }
 
@@ -110,14 +150,16 @@ __device__ __forceinline__ void stage_strip(
 
 // q: [b, d_pad] bf16 (the wrapper casts the f32 queries once, as the JAX
 // kernel casts queries to the store dtype).
+template <bool WITH_IDX>
 __global__ void __launch_bounds__(THREADS)
     bucket_maxima_bf16_kernel(const __nv_bfloat16* __restrict__ emb,
                               const __nv_bfloat16* __restrict__ q,
                               int64_t n_rows, int d_pad, int b, int64_t count,
-                              float* out, int64_t nb) {
+                              float* out, int* out_idx, int64_t nb) {
   __shared__ __align__(16) __nv_bfloat16 es[RB][MMA_PITCH];      // rows x depth
   __shared__ __align__(16) __nv_bfloat16 qs[MMA_QB][MMA_PITCH];  // queries x depth
   __shared__ float red[THREADS / 32][MMA_QB];
+  __shared__ int red_row[WITH_IDX ? THREADS / 32 : 1][MMA_QB];
 
   const int n_qb = (b + MMA_QB - 1) / MMA_QB;
   const int qb = (int)(blockIdx.x % n_qb);
@@ -131,7 +173,10 @@ __global__ void __launch_bounds__(THREADS)
   const int t = lane & 3;   // thread in group
 
   if (r0 >= count) {  // uniform: the whole bucket is past the watermark
-    if (tid < MMA_QB && q0 + tid < b) out[(int64_t)(q0 + tid) * nb + bucket] = RAW_NEG;
+    if (tid < MMA_QB && q0 + tid < b) {
+      out[(int64_t)(q0 + tid) * nb + bucket] = RAW_NEG;
+      if (WITH_IDX) out_idx[(int64_t)(q0 + tid) * nb + bucket] = -1;
+    }
     return;
   }
 
@@ -165,48 +210,93 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // Mask rows at the watermark, then max over the warp's 16 rows (lanes
-  // sharing t hold the same queries), then over the 8 warps.
-  const bool lo_live = r0 + warp * 16 + g < count;
-  const bool hi_live = r0 + warp * 16 + g + 8 < count;
+  // sharing t hold the same queries), then over the 8 warps (warp w holds
+  // rows 16w .. 16w+15, so the warps run in ascending row order).
+  const int lo_row = (int)(r0 + warp * 16 + g);
+  const bool lo_live = lo_row < count;
+  const bool hi_live = lo_row + 8 < count;
 #pragma unroll
   for (int n = 0; n < MMA_QB / 8; ++n) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float m = fmaxf(lo_live ? acc[n][h] : RAW_NEG, hi_live ? acc[n][2 + h] : RAW_NEG);
-      m = fmaxf(m, __shfl_xor_sync(FULL, m, 4));
-      m = fmaxf(m, __shfl_xor_sync(FULL, m, 8));
-      m = fmaxf(m, __shfl_xor_sync(FULL, m, 16));
+      const float lo = lo_live ? acc[n][h] : RAW_NEG;
+      const float hi = hi_live ? acc[n][2 + h] : RAW_NEG;
+      float m = fmaxf(lo, hi);
+      if (WITH_IDX) {
+        int row = hi > lo ? lo_row + 8 : (lo_live ? lo_row : -1);
+#pragma unroll
+        for (int off = 4; off <= 16; off <<= 1) {
+          const float om = __shfl_xor_sync(FULL, m, off);
+          argmax_combine(m, row, om, __shfl_xor_sync(FULL, row, off));
+        }
+        if (g == 0) red_row[warp][n * 8 + 2 * t + h] = row;
+      } else {
+        m = fmaxf(m, __shfl_xor_sync(FULL, m, 4));
+        m = fmaxf(m, __shfl_xor_sync(FULL, m, 8));
+        m = fmaxf(m, __shfl_xor_sync(FULL, m, 16));
+      }
       if (g == 0) red[warp][n * 8 + 2 * t + h] = m;
     }
   }
   __syncthreads();
   if (tid < MMA_QB && q0 + tid < b) {
     float m = red[0][tid];
+    int row = WITH_IDX ? red_row[0][tid] : -1;
 #pragma unroll
-    for (int w = 1; w < THREADS / 32; ++w) m = fmaxf(m, red[w][tid]);
+    for (int w = 1; w < THREADS / 32; ++w) {
+      if (WITH_IDX) {
+        argmax_combine(m, row, red[w][tid], red_row[w][tid]);
+      } else {
+        m = fmaxf(m, red[w][tid]);
+      }
+    }
     out[(int64_t)(q0 + tid) * nb + bucket] = m;
+    if (WITH_IDX) out_idx[(int64_t)(q0 + tid) * nb + bucket] = row;
   }
 }
 
 }  // namespace tat
 
-// q: [b, d_pad], f32 for an f32 store (dtype 0), bf16 for a bf16 store
-// (dtype 1; then d_pad % 64 == 0 and both pointers 16-byte aligned).
-// out: [b, nb] f32 with nb = n_rows / 128. Returns cudaGetLastError().
-extern "C" int tat_bucket_maxima(const void* emb, int dtype, const void* q,
-                                 int64_t n_rows, int d_pad, int b,
-                                 int64_t count, float* out, void* stream) {
+namespace {
+
+template <bool WITH_IDX>
+void launch_bucket_maxima(const void* emb, int dtype, const void* q,
+                          int64_t n_rows, int d_pad, int b, int64_t count,
+                          float* out, int* out_idx, cudaStream_t st) {
   const int64_t nb = n_rows / tat::RB;
-  cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     const int n_qb = (b + tat::QB - 1) / tat::QB;
-    tat::bucket_maxima_f32_kernel<<<(unsigned)(nb * n_qb), tat::THREADS, 0, st>>>(
-        (const float*)emb, (const float*)q, n_rows, d_pad, b, count, out, nb);
+    tat::bucket_maxima_f32_kernel<WITH_IDX>
+        <<<(unsigned)(nb * n_qb), tat::THREADS, 0, st>>>(
+            (const float*)emb, (const float*)q, n_rows, d_pad, b, count, out,
+            out_idx, nb);
   } else {
     const int n_qb = (b + tat::MMA_QB - 1) / tat::MMA_QB;
-    tat::bucket_maxima_bf16_kernel<<<(unsigned)(nb * n_qb), tat::THREADS, 0, st>>>(
-        (const __nv_bfloat16*)emb, (const __nv_bfloat16*)q, n_rows, d_pad, b,
-        count, out, nb);
+    tat::bucket_maxima_bf16_kernel<WITH_IDX>
+        <<<(unsigned)(nb * n_qb), tat::THREADS, 0, st>>>(
+            (const __nv_bfloat16*)emb, (const __nv_bfloat16*)q, n_rows, d_pad,
+            b, count, out, out_idx, nb);
+  }
+}
+
+}  // namespace
+
+// q: [b, d_pad], f32 for an f32 store (dtype 0), bf16 for a bf16 store
+// (dtype 1; then d_pad % 64 == 0 and both pointers 16-byte aligned).
+// out: [b, nb] f32 with nb = n_rows / 128; out_idx: NULL for K2 (maxima
+// only), else [b, nb] int32 for K2' (the argmax rows). Returns
+// cudaGetLastError().
+extern "C" int tat_bucket_maxima(const void* emb, int dtype, const void* q,
+                                 int64_t n_rows, int d_pad, int b,
+                                 int64_t count, float* out, int* out_idx,
+                                 void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (out_idx == nullptr) {
+    launch_bucket_maxima<false>(emb, dtype, q, n_rows, d_pad, b, count, out,
+                                nullptr, st);
+  } else {
+    launch_bucket_maxima<true>(emb, dtype, q, n_rows, d_pad, b, count, out,
+                               out_idx, st);
   }
   return (int)cudaGetLastError();
 }

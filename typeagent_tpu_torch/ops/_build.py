@@ -4,7 +4,8 @@ The CUDA kernels (``csrc/*.cu``) compile with ``nvcc`` for ``sm_90a`` into
 one shared library with a plain C interface, loaded through ``ctypes``.
 Nothing is built at import time: the first launch builds, under a file
 lock so that concurrent processes (test workers, a server's replicas)
-build once. Outputs go to ``typeagent_tpu_torch/_build/``, named by a hash
+build once; each source compiles in its own ``nvcc`` process, all started
+together, and the objects link into the library. Outputs go to ``typeagent_tpu_torch/_build/``, named by a hash
 of their sources and flags, so an edited source rebuilds.
 """
 
@@ -54,14 +55,34 @@ def find_nvcc() -> str:
     )
 
 
+def _run_all(commands: list[list[str]], what: str) -> None:
+    """Run the commands at once and wait for all of them; raise
+    ``RuntimeError`` with the output of the first that failed."""
+    procs = [
+        subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, errors="replace"
+        )
+        for cmd in commands
+    ]
+    failed = None
+    for cmd, proc in zip(commands, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"building {what} failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+    if failed is not None:
+        raise RuntimeError(failed)
+
+
 def build_shared(
     name: str, sources: list[str], headers: list[str], command: list[str]
 ) -> str:
     """Build ``command + ['-o', out] + sources`` once per content hash.
 
-    Returns the library path. The compile runs under an exclusive file lock
-    and lands through an atomic rename, so a reader never sees a half-
-    written library. Raises ``RuntimeError`` with the compiler's output on
+    Several sources compile to objects in parallel (one compiler process
+    each, ``command`` without ``-shared`` plus ``-c``), then link. Returns
+    the library path. The build runs under an exclusive file lock and
+    lands through an atomic rename, so a reader never sees a half-written
+    library. Raises ``RuntimeError`` with the compiler's output on
     failure.
     """
     digest = hashlib.sha256()
@@ -79,16 +100,19 @@ def build_shared(
             if os.path.exists(out):
                 return out
             tmp = f"{out}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                list(command) + ["-o", tmp] + list(sources),
-                capture_output=True,
-                text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"building {name} failed ({proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
+            objects = [f"{tmp}.{i}.o" for i in range(len(sources))] if len(sources) > 1 else []
+            try:
+                if objects:
+                    compile_only = [c for c in command if c != "-shared"] + ["-c"]
+                    _run_all(
+                        [compile_only + ["-o", obj, src] for obj, src in zip(objects, sources)],
+                        name,
+                    )
+                _run_all([list(command) + ["-o", tmp] + (objects or list(sources))], name)
+            finally:
+                for obj in objects:
+                    if os.path.exists(obj):
+                        os.remove(obj)
             os.replace(tmp, out)
         finally:
             fcntl.flock(lock_file, fcntl.LOCK_UN)
@@ -109,7 +133,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tat_topk_scan_q": [p, p, *geometry, *tail],
         "tat_topk_scan_mq": [p, p, *geometry, p, *tail],
         "tat_topk_merge": [p, p, i32, i32, i32, p, p, p],
-        "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, p, p],
+        "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, p, p, p],
         "tat_rescore": [p, i32, p, p, i64, i32, i32, i32, p, p],
     }
     for name, argtypes in signatures.items():

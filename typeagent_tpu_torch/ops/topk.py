@@ -12,17 +12,19 @@ the exact routes:
     K6 ``fused_topk_q`` (int8 rows with per-row scales) and
     K7 ``fused_topk_mq`` (K6 with K5's mask);
   * K2 ``bucket_maxima``: maximum raw cosine of each 128-row bucket, the
-    selection phase of the two-phase ("exact2") search;
+    selection phase of the two-phase ("exact2") search; K2'
+    ``bucket_argmax``, the same kernel with the argmax row of each bucket,
+    carries the bucketed approximate search (``cosine_topk_bucket``);
   * K3 ``rescore_selected``: exact f32 scores of each query's selected
     buckets, the second phase, which ends in a per-query certificate.
 
 Each kernel has a plain PyTorch version of the same function beside it
 (``topk_plain``, ``topk_iv_plain``, ``topk_masked_plain``,
 ``topk_q_plain``, ``topk_mq_plain``, ``bucket_maxima_plain``,
-``rescore_selected_plain``). A wrapper runs the plain version for a tensor
-on the CPU and launches its kernel for a CUDA tensor; there is no other
-fallback. Each wrapper counts its launches, so a run can show that the
-serving path went through it.
+``bucket_argmax_plain``, ``rescore_selected_plain``). A wrapper runs the
+plain version for a tensor on the CPU and launches its kernel for a CUDA
+tensor; there is no other fallback. Each wrapper counts its launches, so
+a run can show that the serving path went through it.
 """
 
 from __future__ import annotations
@@ -33,20 +35,26 @@ import threading
 import numpy as np
 import torch
 
+from ..utils.metrics import METRICS
 from . import _build
 
 __all__ = [
     "cosine_topk",
     "cosine_topk_exact2",
     "cosine_topk_exact2_hybrid",
+    "cosine_topk_approx",
+    "cosine_topk_bucket",
+    "approx_uses_buckets",
     "cosine_scores",
     "subset_cosine_topk",
     "topk_many",
     "fused_topk",
     "bucket_maxima",
+    "bucket_argmax",
     "rescore_selected",
     "topk_plain",
     "bucket_maxima_plain",
+    "bucket_argmax_plain",
     "rescore_selected_plain",
     "intervals_to_rowmask",
     "topk_program_masked",
@@ -120,12 +128,14 @@ TOPK_MASK_LAUNCHES = LaunchCounter("topk_mask")
 TOPK_Q_LAUNCHES = LaunchCounter("topk_q")
 TOPK_MQ_LAUNCHES = LaunchCounter("topk_mq")
 BUCKET_MAXIMA_LAUNCHES = LaunchCounter("bucket_maxima")
+BUCKET_ARGMAX_LAUNCHES = LaunchCounter("bucket_argmax")
 RESCORE_LAUNCHES = LaunchCounter("rescore")
 # Calls of the k > 32 route, which materializes scores (no kernel).
 MATERIALIZED_CALLS = LaunchCounter("materialized_topk")
 COUNTERS = (
     TOPK_LAUNCHES, TOPK_IV_LAUNCHES, TOPK_MASK_LAUNCHES, TOPK_Q_LAUNCHES,
-    TOPK_MQ_LAUNCHES, BUCKET_MAXIMA_LAUNCHES, RESCORE_LAUNCHES, MATERIALIZED_CALLS,
+    TOPK_MQ_LAUNCHES, BUCKET_MAXIMA_LAUNCHES, BUCKET_ARGMAX_LAUNCHES, RESCORE_LAUNCHES,
+    MATERIALIZED_CALLS,
 )
 
 
@@ -515,12 +525,35 @@ def bucket_maxima_plain(
     return out
 
 
-def bucket_maxima(
+def bucket_argmax_plain(
     emb: torch.Tensor, queries: torch.Tensor, count: int
-) -> torch.Tensor:
-    """K2 (``csrc/bucket_maxima.cu``), as :func:`bucket_maxima_plain`."""
-    if emb.device.type == "cpu":
-        return bucket_maxima_plain(emb, queries, count)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2': :func:`bucket_maxima_plain` plus the argmax
+    row of each bucket (``[b, n_rows/128]`` i32, the lowest row among
+    equal maxima, as ``jnp.argmax``); a bucket with no live row gives
+    ``(-3.0, -1)``."""
+    n_rows = emb.shape[0]
+    b = queries.shape[0]
+    nb = n_rows // _BUCKET_ROWS
+    vals = torch.empty((b, nb), dtype=torch.float32, device=emb.device)
+    idx = torch.empty((b, nb), dtype=torch.int32, device=emb.device)
+    for start in range(0, n_rows, _PLAIN_CHUNK):
+        stop = min(start + _PLAIN_CHUNK, n_rows)
+        grouped = _raw_scores(emb, queries, count, start, stop).view(b, -1, _BUCKET_ROWS)
+        # max() returns the first maximal position along the bucket.
+        v, pos = grouped.max(dim=2)
+        b0, b1 = start // _BUCKET_ROWS, stop // _BUCKET_ROWS
+        rows = torch.arange(b0, b1, device=emb.device)[None, :] * _BUCKET_ROWS + pos
+        vals[:, b0:b1] = v
+        idx[:, b0:b1] = torch.where(v > -2.0, rows, -1).to(torch.int32)
+    return vals, idx
+
+
+def _launch_bucket_maxima(
+    emb: torch.Tensor, queries: torch.Tensor, count: int, with_idx: bool
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch ``csrc/bucket_maxima.cu``: K2 (maxima only) or K2' (maxima
+    and argmax rows)."""
     code = _check_cuda_operands(emb, queries)
     n_rows, d_pad = emb.shape
     b = queries.shape[0]
@@ -532,17 +565,40 @@ def bucket_maxima(
         q_arg = queries.to(torch.bfloat16)
         if d_pad % 64 or emb.data_ptr() % 16:
             raise ValueError("bf16 bucket maxima needs d_pad % 64 == 0 and 16-byte alignment")
-    out = torch.empty(
-        (b, n_rows // _BUCKET_ROWS), dtype=torch.float32, device=emb.device
-    )
+    nb = n_rows // _BUCKET_ROWS
+    out = torch.empty((b, nb), dtype=torch.float32, device=emb.device)
+    idx = torch.empty((b, nb), dtype=torch.int32, device=emb.device) if with_idx else None
     _build.check(
         _build.kernels().tat_bucket_maxima(
             emb.data_ptr(), code, q_arg.data_ptr(), n_rows, d_pad, b,
-            max(0, min(int(count), n_rows)), out.data_ptr(), _stream(emb),
+            max(0, min(int(count), n_rows)), out.data_ptr(),
+            idx.data_ptr() if with_idx else None, _stream(emb),
         ),
-        "bucket maxima",
+        "bucket argmax" if with_idx else "bucket maxima",
     )
+    return out, idx
+
+
+def bucket_maxima(
+    emb: torch.Tensor, queries: torch.Tensor, count: int
+) -> torch.Tensor:
+    """K2 (``csrc/bucket_maxima.cu``), as :func:`bucket_maxima_plain`."""
+    if emb.device.type == "cpu":
+        return bucket_maxima_plain(emb, queries, count)
+    out, _ = _launch_bucket_maxima(emb, queries, count, with_idx=False)
     BUCKET_MAXIMA_LAUNCHES.add()
+    return out
+
+
+def bucket_argmax(
+    emb: torch.Tensor, queries: torch.Tensor, count: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2' (``csrc/bucket_maxima.cu``, the argmax instance of K2's
+    template), as :func:`bucket_argmax_plain`."""
+    if emb.device.type == "cpu":
+        return bucket_argmax_plain(emb, queries, count)
+    out = _launch_bucket_maxima(emb, queries, count, with_idx=True)
+    BUCKET_ARGMAX_LAUNCHES.add()
     return out
 
 
@@ -836,6 +892,53 @@ def cosine_topk_exact2_hybrid(
     )
 
 
+# Row count from which the approx route rides the bucket argmax (the
+# store's exact2 crossover, ``vectorstore.EXACT2_MIN_ROWS``). One bucket
+# yields one hit, so below it a store has too few buckets per hit and the
+# route falls back to the exact one-phase kernel.
+APPROX_BUCKET_MIN_ROWS = 131_072
+
+
+def approx_uses_buckets(count: int, k: int) -> bool:
+    """The approx route's rule: the bucket argmax for stores of at least
+    ``APPROX_BUCKET_MIN_ROWS`` live rows and k within the fused kernel's
+    range, else the exact one-phase route. The choice is counted in
+    ``METRICS`` (``topk.approx_route.bucket`` / ``.exact``)."""
+    bucket = count >= APPROX_BUCKET_MIN_ROWS and k <= _PALLAS_MAX_K
+    METRICS.incr("topk.approx_route.bucket" if bucket else "topk.approx_route.exact")
+    return bucket
+
+
+def cosine_topk_bucket(
+    emb: torch.Tensor, queries: torch.Tensor, count: int, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Bucketed approximate top-k: K2' (maximum and argmax row of every
+    128-row bucket), an exact top-k over the ``[b, n/128]`` maxima, and the
+    argmax rows of the winners. A true top-k row is missed only when two
+    of the true top k share a bucket. Returns at most ``n_rows/128``
+    columns (one hit per bucket); dead buckets give (-1, -1)."""
+    vals, idx = bucket_argmax(emb, queries, count)
+    k = min(k, vals.shape[1])
+    top_vals, pos = torch.topk(vals, k, dim=1)
+    return _raw_to_score(top_vals, idx.gather(1, pos))
+
+
+def cosine_topk_approx(
+    emb: torch.Tensor, queries: torch.Tensor, count: int, k: int,
+    recall_target: float = 0.95,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Approximate batched top-k (``search_mode="approx"``): the bucketed
+    route (:func:`cosine_topk_bucket`) where :func:`approx_uses_buckets`
+    says so, else the exact :func:`cosine_topk` (K1, what
+    ``lax.approx_max_k`` is off the TPU). ``recall_target`` is accepted for
+    the JAX signature; neither route has a recall knob, so the recall is a
+    property of the data."""
+    del recall_target
+    if approx_uses_buckets(count, k):
+        return cosine_topk_bucket(emb, queries, count, k)
+    return cosine_topk(emb, queries, count, k)
+
+
 def subset_cosine_topk(
     emb: torch.Tensor, queries: torch.Tensor, ordinals: torch.Tensor,
     valid: torch.Tensor, k: int,
@@ -850,20 +953,16 @@ def subset_cosine_topk(
     return vals, ordinals[pos].to(torch.int32)
 
 
-# ROADMAP.md Queue 1 items that port the other engine modes.
-_MODE_ITEMS = {"approx": 8}
-
-
 def topk_many(
     emb: torch.Tensor, aux: torch.Tensor | None, qs: torch.Tensor, count: int,
-    *, k: int, mode: str, slack: int | None = None,
+    *, k: int, mode: str, slack: int | None = None, recall_target: float = 0.95,
 ):
     """R query batches ``[R, b_pad, d_pad]`` in one launch per kernel:
     queries are independent, so the batches are stacked into one
     ``[R*b_pad, d_pad]`` block and the outputs reshaped back to
     ``[R, b_pad, k]`` (plus ``[R, b_pad]`` certificates for exact2).
     ``aux`` is the bf16 shadow for ``exact2h`` and the per-row scales for
-    ``quantized`` (an int8 store)."""
+    ``quantized`` (an int8 store); ``approx`` takes none."""
     r_n, b_pad, d_pad = qs.shape
     flat = qs.reshape(r_n * b_pad, d_pad)
     if mode == "exact1":
@@ -878,11 +977,8 @@ def topk_many(
         )
     elif mode == "quantized":
         out = topk_program_quantized(emb, aux, flat, count, k)
-    elif mode in _MODE_ITEMS:
-        raise NotImplementedError(
-            f"engine mode {mode!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item {_MODE_ITEMS[mode]})"
-        )
+    elif mode == "approx":
+        out = cosine_topk_approx(emb, flat, count, k, recall_target=recall_target)
     else:
         raise ValueError(f"unknown mode: {mode}")
     return tuple(t.reshape(r_n, b_pad, *t.shape[1:]) for t in out)

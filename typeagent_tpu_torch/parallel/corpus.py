@@ -6,7 +6,9 @@ conversations. All conversations' chunk embeddings live in ONE matrix
 Search targets one conversation, a set, or the whole corpus; scoping turns
 the wanted conversations' segments into an interval table, from which the
 device builds its row filter, so a scoped search costs the same fused scan
-as a global one. Port of ``typeagent_tpu/parallel/corpus.py`` on one
+as a global one. With ``search_mode="approx"`` global searches ride the
+approx route, with ``"ivf"`` the IVF snapshot once :meth:`build_ivf` has
+run (exact until then); scoped searches stay exact either way. Port of ``typeagent_tpu/parallel/corpus.py`` on one
 device (``device=`` takes the place of ``mesh=``).
 """
 
@@ -84,6 +86,10 @@ class CorpusVectorStore:
         self._store.reserve(n_rows)
 
     def build_ivf(self, **build_kwargs) -> None:
+        """Snapshot the corpus into per-shard IVF indexes
+        (``parallel/ivf.py``): global searches of an ``"ivf"`` corpus then
+        ride it (rows appended later through an exact suffix scan until the
+        next build); scoped searches stay exact."""
         self._store.build_ivf(**build_kwargs)
 
     def append_device(self, conversation: str, rows: torch.Tensor | np.ndarray) -> None:

@@ -13,6 +13,11 @@ the gather between them without reshaping the class.
 Routes (``ops/topk.py``), as in the JAX package:
 
   * global search: the one-phase K1 for f32/bf16 stores, K6 for int8;
+    ``search_mode="approx"``: each shard's approx route (the bucket argmax
+    K2' on large shards, K1 below); ``search_mode="ivf"`` with a snapshot
+    (:meth:`ShardedVectorStore.build_ivf`): each shard's IVF program
+    (``parallel/ivf.py``), plus an exact interval scan of rows appended
+    after the snapshot;
   * ``search_intervals``: a table of <= 8 intervals rides K4, a larger one
     a row mask built on the device and K5; an int8 store always takes the
     row mask and K7;
@@ -24,6 +29,7 @@ Routes (``ops/topk.py``), as in the JAX package:
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 
 import numpy as np
@@ -37,12 +43,8 @@ __all__ = ["ShardedVectorStore"]
 
 _DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 _INTERVAL_BUCKETS = (8, 32, 128, 512)
-# ROADMAP.md Queue 1 items that port what this store refuses.
-_NOT_PORTED = {
-    "approx": "search_mode='approx' (ROADMAP.md Queue 1 item 8)",
-    "ivf": "search_mode='ivf' and build_ivf (ROADMAP.md Queue 1 item 8)",
-    "mesh": "a mesh of devices (ROADMAP.md Queue 1 item 9)",
-}
+# The ROADMAP.md Queue 1 item that ports what this store refuses.
+_MESH_NOT_PORTED = "a mesh of devices (ROADMAP.md Queue 1 item 9)"
 
 
 def _bucket_size(n: int, buckets) -> int:
@@ -73,6 +75,13 @@ def _shard_topk(emb, scales, offset: int, q, count: int, k: int):
         out = topk.topk_program_quantized(emb, scales, q, local_count, k)
     else:
         out = topk.cosine_topk(emb, q, local_count, k)
+    return _to_global(*out, offset)
+
+
+def _shard_approx_topk(emb, scales, offset: int, q, count: int, k: int, *, recall_target: float):
+    """The approx route over one shard (f32/bf16 rows; ``scales`` is None)."""
+    local_count = _local_count(count, offset, emb.shape[0])
+    out = topk.cosine_topk_approx(emb, q, local_count, k, recall_target=recall_target)
     return _to_global(*out, offset)
 
 
@@ -117,8 +126,9 @@ class ShardedVectorStore:
 
     Mirrors the JAX class's feature set: pending-buffer batching, f32,
     bf16 and int8 storage, on-device min_score, exact subset, mask and
-    interval search, and serialize/deserialize round-trips. ``device``
-    takes the place of the JAX ``mesh``; passing ``mesh=`` raises.
+    interval search, approx and IVF global search, and
+    serialize/deserialize round-trips. ``device`` takes the place of the
+    JAX ``mesh``; passing ``mesh=`` raises.
     """
 
     def __init__(
@@ -126,12 +136,14 @@ class ShardedVectorStore:
         dim: int,
         dtype: str | torch.dtype = "float32",
         search_mode: str = "exact",
+        recall_target: float = 0.95,
+        ivf_b: int = 16,
         *,
         device: str | torch.device = "cuda",
         mesh: object | None = None,
     ):
         if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED["mesh"])
+            raise NotImplementedError(_MESH_NOT_PORTED)
         if isinstance(dtype, str):
             dtype = _DTYPE_NAMES[dtype]
         if dtype not in _DTYPE_NAMES.values():
@@ -140,8 +152,6 @@ class ShardedVectorStore:
             raise ValueError(f"unknown search_mode {search_mode!r}")
         if search_mode in ("approx", "ivf") and dtype == torch.int8:
             raise ValueError(f"search_mode={search_mode!r} supports float32/bfloat16 stores only")
-        if search_mode != "exact":
-            raise NotImplementedError(_NOT_PORTED[search_mode])
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -149,6 +159,9 @@ class ShardedVectorStore:
                 "pass device='cpu' to run the plain PyTorch versions"
             )
         self.search_mode = search_mode
+        self.recall_target = recall_target
+        self.ivf_b = ivf_b  # buckets rescored per shard per query
+        self._ivf = None  # parallel.ivf.ShardedIVF snapshot
         self.device = device
         self.dim = dim
         self.dim_pad = append_ops.round_up(dim, append_ops.LANES)
@@ -333,9 +346,10 @@ class ShardedVectorStore:
             if count == 0:
                 return ("empty", b)
             q = self._pad_queries(queries)
-            vals, idx = self._search_shards(
-                _shard_topk, q, min(k, count), min_score, buf, scales, count
-            )
+            program = _shard_topk
+            if self.search_mode == "approx":
+                program = functools.partial(_shard_approx_topk, recall_target=self.recall_target)
+            vals, idx = self._search_shards(program, q, min(k, count), min_score, buf, scales, count)
         return (vals, idx, b)
 
     def collect_search(self, handle: tuple) -> list[list[tuple[int, float]]]:
@@ -346,11 +360,59 @@ class ShardedVectorStore:
         return self._collect(vals, idx, b)
 
     def search(self, queries: np.ndarray, k: int, min_score: float = 0.0) -> list[list[tuple[int, float]]]:
-        """Batched lookup -> per-query (ordinal, score) lists."""
+        """Batched lookup -> per-query (ordinal, score) lists. An IVF store
+        with a snapshot searches it (:meth:`search_ivf`)."""
+        if self.search_mode == "ivf" and self._ivf is not None:
+            return self.search_ivf(queries, k, min_score)[0]
         return self.collect_search(self.search_dispatch(queries, k, min_score))
 
+    # -- sharded IVF (per-shard learned buckets; parallel/ivf.py) -------------
+
     def build_ivf(self, **build_kwargs) -> None:
-        raise NotImplementedError(_NOT_PORTED["ivf"])
+        """Snapshot the live rows into per-shard IVF indexes
+        (``build_kwargs`` go to ``ops.ivf.ivf_build``). Rows appended
+        later are found by an exact interval scan until the next build.
+        No-op on an empty store."""
+        from .ivf import build_sharded_ivf
+
+        self._flush()
+        if self.count == 0:
+            return
+        self._ivf = build_sharded_ivf(self, **build_kwargs)
+
+    def search_ivf(
+        self, queries: np.ndarray, k: int, min_score: float = 0.0
+    ) -> tuple[list[list[tuple[int, float]]], list[bool]]:
+        """IVF lookup -> (per-query results, per-query certificates). A True
+        certificate means the result is provably the exact top-k (up to
+        eps ties): every shard certified its excluded buckets, and the
+        outlier tails and the post-snapshot suffix were scanned exactly."""
+        from .ivf import sharded_ivf_search_dispatch
+
+        b = queries.shape[0]
+        with self._view() as (_buf, _scales, count):
+            if count == 0:
+                return [[] for _ in range(b)], [True] * b
+            snapshot = self._ivf
+            if snapshot is None:
+                raise RuntimeError("search_ivf before build_ivf")
+            k_eff = min(k, count)
+            vals, idx, cert = sharded_ivf_search_dispatch(
+                self, snapshot, self._pad_queries(queries), k_eff, min_score
+            )
+        certs = cert[:b].cpu().tolist()
+        results = self._collect(vals, idx, b)
+        # Rows appended after the snapshot: an exact interval scan, merged
+        # in score space (the suffix is exact, so certificates stay sound).
+        if count > snapshot.built_count:
+            extra = self.search_intervals(
+                queries, np.asarray([[snapshot.built_count, count]]), k_eff, min_score
+            )
+            for r in range(b):
+                merged = results[r] + extra[r]
+                merged.sort(key=lambda t: -t[1])
+                results[r] = merged[:k_eff]
+        return results, certs
 
     def _search_rowmask(self, queries, make_mask, k: int, min_score: float):
         """Exact top-k over the rows where ``make_mask(capacity, count)``
@@ -473,6 +535,7 @@ class ShardedVectorStore:
     def clear(self) -> None:
         with self._lock:
             self._reset_buffers()
+            self._ivf = None  # a derived index: rebuild after a clear or restore
             with self._pending_lock:
                 self._pending = []
                 self._pending_rows = 0

@@ -16,6 +16,12 @@ table, lazy embedding-size adoption.
     selection plus exact f32 rescore for f32 stores), whose certificate
     misses rerun the one-phase kernel for the queries that missed. An
     int8 store always runs its one-phase kernel (K6).
+  * ``search_mode="approx"`` rides the bucket argmax (K2') from
+    ``EXACT2_MIN_ROWS`` rows on, the exact one-phase kernel below.
+  * ``search_mode="ivf"`` searches a snapshot built by :meth:`build_ivf`
+    (``ops/ivf.py``); rows appended after it ride an exact interval scan
+    (K4), merged. In ``ivf_certified`` mode a certificate miss escalates
+    through a 4x-bucket IVF pass and then the exact one-phase rerun.
   * Small appends buffer on the host and flush before the next lookup.
 
 ``TextEmbeddingIndexSettings.device`` names the device. ``"cpu"`` runs
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 
 from . import native as _native_mod
-from .ops import append, topk
+from .ops import _build, append, ivf, topk
 from .utils.metrics import METRICS
 
 if TYPE_CHECKING:
@@ -59,12 +65,20 @@ _SUBSET_MIN_BUCKET = 64
 # still to be measured (ROADMAP.md Queue 1 item 3).
 EXACT2_MIN_ROWS = 131_072
 
+# Certificate-miss resolution: row count from which a miss escalates
+# through a bigger-B IVF pass before the exact rescan (below it the full
+# scan is cheap enough that the extra pass costs more than it saves; tests
+# shrink it to exercise the path).
+_ESCALATE_MIN_ROWS = 2_000_000
+# Adaptive escalation floor: skip the bigger-B pass once the EMA of the
+# fraction of misses it resolved falls below this (resolving fewer than
+# half rarely empties the exact rescan, so the pass is pure extra work).
+_ESCALATE_MIN_YIELD = 0.5
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
-_SEARCH_MODES = ("exact", "exact1", "exact2")
+_SEARCH_MODES = ("exact", "exact1", "exact2", "approx", "ivf")
 # ROADMAP.md Queue 1 items that port the settings this store refuses.
 _NOT_PORTED = {
-    "approx": "search_mode='approx' (ROADMAP.md Queue 1 item 8)",
-    "ivf": "search_mode='ivf' (ROADMAP.md Queue 1 item 8)",
     "mesh": "mesh= (ROADMAP.md Queue 1 item 9)",
     "query_wire": "query_wire='int8' (ROADMAP.md Queue 1 item 7)",
 }
@@ -127,8 +141,8 @@ class TextEmbeddingIndexSettings:
 
     ``dtype`` is the device buffer's type (``float32``, the parity
     default, ``bfloat16`` or ``int8``); ``search_mode`` is ``exact``
-    (routes by row count), ``exact1`` or ``exact2``; ``device`` is where
-    the store lives.
+    (routes by row count), ``exact1``, ``exact2``, ``approx`` or ``ivf``
+    (f32/bf16 stores); ``device`` is where the store lives.
     """
 
     def __init__(
@@ -153,8 +167,6 @@ class TextEmbeddingIndexSettings:
             raise ValueError(f"dtype must be float32, bfloat16 or int8, got {dtype!r}")
         if search_mode in ("approx", "ivf") and dtype == "int8":
             raise ValueError(f"search_mode={search_mode!r} supports float32/bfloat16 stores only")
-        if search_mode in ("approx", "ivf"):
-            raise NotImplementedError(_NOT_PORTED[search_mode])
         if search_mode not in _SEARCH_MODES:
             raise ValueError(f"unknown search_mode {search_mode!r}")
         if mesh is not None:
@@ -182,7 +194,20 @@ class TextEmbeddingIndexSettings:
         self.dtype = dtype
         self.mesh = None
         self.search_mode = search_mode
+        # Kept as in the JAX settings; the port's approx routes have no
+        # recall knob (ops.topk.cosine_topk_approx).
         self.recall_target = recall_target
+        # IVF knobs: buckets rescored per query (the recall lever), the
+        # exiled outlier fraction at build, and whether a certificate miss
+        # reruns exactly (exact results always).
+        self.ivf_b = 16
+        self.ivf_outlier_frac = 0.1
+        self.ivf_certified = False
+        # Rows appended after build_ivf() ride an exact interval scan; with
+        # ivf_auto_rebuild a query that sees the appended fraction past
+        # ivf_rebuild_frac starts one background rebuild.
+        self.ivf_rebuild_frac = 0.25
+        self.ivf_auto_rebuild = False
         self.query_wire = query_wire
         self.device = device
 
@@ -192,6 +217,40 @@ def _bucket(n: int, buckets=_QUERY_BUCKETS) -> int:
         if n <= b:
             return b
     return append.round_up(n, buckets[-1])
+
+
+def _ivf_suffix_merged(
+    state: ivf.IVFState, buf: torch.Tensor, q: torch.Tensor, count: int,
+    ivf_count: int, *, k: int, B: int,
+):
+    """IVF snapshot search plus an exact interval scan (K4) of the rows
+    appended after it, ``[ivf_count, count)``, merged in score space. The
+    certificate stays sound: the suffix is exact and the merged k-th score
+    only grows."""
+    vals, idx, cert = ivf.ivf_topk_program(*state, q, k, B=B)
+    intervals = torch.tensor([[ivf_count, count]], dtype=torch.int32, device=q.device)
+    v2, i2 = topk.topk_program_intervals(buf, q, count, intervals, k)
+    sv = torch.cat([vals, v2], dim=1)
+    si = torch.cat([idx, i2], dim=1)
+    mv, pos = torch.topk(sv, min(k, sv.shape[1]), dim=1)
+    return mv, si.gather(1, pos), cert
+
+
+def _ivf_many(
+    state: ivf.IVFState, buf: torch.Tensor, qs: torch.Tensor, count: int,
+    ivf_count: int, *, k: int, B: int,
+):
+    """R query batches ``[R, b_pad, d_pad]`` through the IVF route in one
+    launch per kernel (the port of ``_ivf_topk_many`` and
+    ``_ivf_suffix_merged_many``): queries are independent, so the batches
+    are stacked and the outputs reshaped back."""
+    r_n, b_pad, d_pad = qs.shape
+    flat = qs.reshape(r_n * b_pad, d_pad)
+    if count <= ivf_count:
+        out = ivf.ivf_topk_program(*state, flat, k, B=B)
+    else:
+        out = _ivf_suffix_merged(state, buf, flat, count, ivf_count, k=k, B=B)
+    return tuple(t.reshape(r_n, b_pad, *t.shape[1:]) for t in out)
 
 
 class VectorStore:
@@ -227,6 +286,18 @@ class VectorStore:
         # Per-event-loop LookupBatcher for the async lookup route.
         self._batcher: LookupBatcher | None = None
         self._batcher_loop = None
+        # search_mode="ivf": the snapshot (ops.ivf.IVFState) and the row
+        # count it covers.
+        self._ivf: ivf.IVFState | None = None
+        self._ivf_count = 0
+        # EMA of the fraction of certificate misses the bigger-B IVF pass
+        # resolved (None: not yet tried on this snapshot). Written under
+        # _flush_lock, and only while its snapshot is current.
+        self._esc_ema: float | None = None
+        # Buffers a rebuild thread is reading (_pinned_view): a flush into
+        # one writes a copy, never the pinned tensor. Guarded by _flush_lock.
+        self._pinned_bufs: list[torch.Tensor] = []
+        self._ivf_rebuild_thread: threading.Thread | None = None
 
     # -- embedding model passthrough ----------------------------------------
 
@@ -335,6 +406,9 @@ class VectorStore:
         self._buf = buf
 
     def _ensure_capacity_locked(self, n: int) -> None:
+        """Make room for ``n`` more rows in a buffer the caller may write
+        in place: growth allocates a new buffer, and a buffer pinned by a
+        rebuild (:meth:`_pinned_view`) is copied once rather than written."""
         if self._buf is None:
             cap = self._initial_capacity(n)
             self._buf = append.make_buffer(cap, self._dim_pad, self._dtype, self._device)
@@ -346,6 +420,8 @@ class VectorStore:
                     self._buf, self._count + n, exact_capacity=self._reserve_hint or None
                 )
             )
+        elif any(self._buf is p for p in self._pinned_bufs):
+            self._set_buffer(self._buf.clone())
 
     def load_device_rows(self, rows: torch.Tensor) -> None:
         """Bulk-adopt embedding rows already on the store's device (an
@@ -417,9 +493,17 @@ class VectorStore:
         ingest never waits on a device round trip. Yields ``(buf, scales,
         count)``; ``scales`` is None unless the store is int8.
         """
+        self._kernels_ready()
         with self._flush_lock:
             self._flush_locked()
             yield self._buf, self._scales, self._count
+
+    def _kernels_ready(self) -> None:
+        """Build the kernel library (once per process) before a caller
+        takes ``_flush_lock``: no build may run inside it, where it would
+        stall every serving thread and ingest flush."""
+        if self._device.type == "cuda":
+            _build.kernels()
 
     def _take_pending(self) -> np.ndarray | None:
         """Atomically detach the pending rows for a flush."""
@@ -470,8 +554,10 @@ class VectorStore:
 
     def warm_serving(self, max_batch: int = 256, k: int = 10) -> int:
         """Run one lookup per query-batch bucket up to ``max_batch``, so the
-        kernel build and the bf16 shadow happen before traffic. Returns
-        the number of lookups run."""
+        kernel build and the bf16 shadow happen before traffic; an IVF
+        store with a snapshot also runs its certificate-miss routes (the
+        escalated IVF pass and the exact rerun) once at the smallest
+        bucket. Returns the number of lookups run."""
         self._flush()
         if len(self) == 0:
             return 0
@@ -482,6 +568,12 @@ class VectorStore:
             queries = np.zeros((bucket, self._embedding_size), np.float32)
             self.fuzzy_lookup_embeddings_batch(queries, max_hits=k)
             dispatched += 1
+        state, count = self._ivf, self._count
+        if self.settings.search_mode == "ivf" and state is not None:
+            q = self._pad_queries(np.zeros((1, self._embedding_size), np.float32))
+            kk = min(k, count)
+            self._rerun_ivf(q, kk, count, min(4 * self.settings.ivf_b, state.n_buckets), state)
+            self._rerun_exact1(q, kk, count)
         return dispatched
 
     def fuzzy_lookup_embedding(
@@ -536,7 +628,7 @@ class VectorStore:
             vals, idx = _fetch(vals, idx)
         else:
             vals, idx, cert_h = _fetch(vals, idx, cert)
-            vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b)
+            vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b, b)
         return _materialize_rows(vals, idx, b, min_score)
 
     def _all_scores(self, q: torch.Tensor, buf: torch.Tensor, scales, count: int):
@@ -555,6 +647,13 @@ class VectorStore:
         if self._quantized:
             vals, idx = topk.cosine_topk_quantized(buf, scales, q, count, k)
             return vals, idx, None
+        if self.settings.search_mode == "approx":
+            vals, idx = topk.cosine_topk_approx(
+                buf, q, count, k, recall_target=self.settings.recall_target
+            )
+            return vals, idx, None
+        if self.settings.search_mode == "ivf" and self._ivf is not None:
+            return self._topk_ivf(q, k, buf, count)
         if self._use_exact2(k, count):
             if self._dtype == torch.float32:
                 # Hybrid: bf16-shadow bucket selection (half the bytes of an
@@ -564,13 +663,46 @@ class VectorStore:
         vals, idx = topk.cosine_topk(buf, q, count, k)
         return vals, idx, None
 
+    def _topk_ivf(self, q: torch.Tensor, k: int, buf: torch.Tensor, count: int):
+        """IVF dispatch (caller holds ``_flush_lock``): the snapshot search,
+        plus the exact interval scan of rows appended after it. The
+        certificate is returned only in ``ivf_certified`` mode, where a
+        miss is resolved exactly."""
+        state = self._ivf
+        B = min(self.settings.ivf_b, state.n_buckets)
+        if count <= self._ivf_count:
+            vals, idx, cert = ivf.ivf_topk_program(*state, q, k, B=B)
+        else:
+            vals, idx, cert = _ivf_suffix_merged(state, buf, q, count, self._ivf_count, k=k, B=B)
+            self._maybe_auto_rebuild_locked(count)
+        return vals, idx, (cert if self.settings.ivf_certified else None)
+
     def _rerun_exact1(self, q: torch.Tensor, k: int, count: int):
         """Certificate-miss rerun against the CURRENT buffer, windowed to
         the row count the original dispatch saw (the store is append-only,
         so rows [0, count) are what that dispatch searched)."""
+        self._kernels_ready()
         with self._flush_lock:
             vals, idx = topk.cosine_topk(self._buf, q, count, k)
         return _fetch(vals, idx)
+
+    def _rerun_ivf(self, q: torch.Tensor, k: int, count: int, B: int, state: ivf.IVFState):
+        """Escalated-B IVF pass for certificate misses, on the snapshot
+        ``state`` the escalation decided on and the appended suffix the
+        original dispatch saw. Returns host ``(vals, idx, cert)``, or None
+        when ``state`` is no longer current (a rebuild swapped in a newer
+        snapshot, whose buckets may hold rows past ``count``; the windowed
+        exact rerun handles those queries)."""
+        self._kernels_ready()
+        with self._flush_lock:
+            if self._ivf is not state or count < self._ivf_count:
+                return None
+            B = min(B, state.n_buckets)
+            if count == self._ivf_count:
+                out = ivf.ivf_topk_program(*state, q, k, B=B)
+            else:
+                out = _ivf_suffix_merged(state, self._buf, q, count, self._ivf_count, k=k, B=B)
+        return _fetch(*out)
 
     def _resolve_cert_misses(
         self,
@@ -580,23 +712,157 @@ class VectorStore:
         q: torch.Tensor,
         k: int,
         count: int,
-        b: int,
+        n_rows: int,
+        n_queries: int,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Rerun the one-phase kernel for just the queries whose
-        certificate failed. The check is sliced to the ``b`` real queries:
-        zero-padded query rows carry no request."""
-        miss = np.flatnonzero(~np.asarray(cert_h)[:b])
-        METRICS.incr("vectorstore.cert_queries", b)
+        """Per-query certificate-miss resolution over the first ``n_rows``
+        rows of the dispatch, which carry ``n_queries`` real queries (the
+        many route passes its padded population and its real count apart;
+        padding slots arrive certified).
+
+        An IVF store's misses first escalate through one bigger-B IVF pass
+        (4x B, capped at every bucket) over just the missed queries, when
+        the store is large, misses are at most half the real queries, and
+        the pass has been paying on this snapshot; the queries still
+        uncertified then rerun the exact one-phase kernel. Rows whose
+        certificate held are returned untouched; every replaced row is
+        exact."""
+        miss = np.flatnonzero(~np.asarray(cert_h)[:n_rows])
+        METRICS.incr("vectorstore.cert_queries", n_queries)
         METRICS.incr("vectorstore.cert_misses", miss.size)
         if miss.size == 0:
             return vals, idx
         vals = np.array(vals)
         idx = np.array(idx)
+        state, ema = self._ivf, self._esc_ema
+        if (
+            count >= _ESCALATE_MIN_ROWS
+            and 2 * miss.size <= n_queries
+            and self.settings.search_mode == "ivf"
+            and state is not None
+            and (ema is None or ema >= _ESCALATE_MIN_YIELD)
+        ):
+            b0 = min(self.settings.ivf_b, state.n_buckets)
+            b_esc = min(4 * max(b0, 1), state.n_buckets)
+            if b_esc > b0:
+                sub = self._pad_query_rows(q[torch.from_numpy(miss).to(q.device)])
+                out = self._rerun_ivf(sub, k, count, b_esc, state)
+                if out is not None:
+                    v2, i2, c2 = out
+                    m = miss.size
+                    vals[miss] = v2[:m]
+                    idx[miss] = i2[:m]
+                    miss = miss[~c2[:m]]
+                    resolved = 1.0 - miss.size / m
+                    with self._flush_lock:
+                        if self._ivf is state:  # learned on the current snapshot
+                            self._esc_ema = (
+                                resolved
+                                if self._esc_ema is None
+                                else 0.7 * self._esc_ema + 0.3 * resolved
+                            )
+                    if miss.size == 0:
+                        return vals, idx
         sub = q[torch.from_numpy(miss).to(q.device)]
         v3, i3 = self._rerun_exact1(self._pad_query_rows(sub), k, count)
         vals[miss] = v3[: miss.size]
         idx[miss] = i3[: miss.size]
         return vals, idx
+
+    # -- IVF snapshot lifecycle ---------------------------------------------
+
+    def build_ivf(self, **kwargs) -> None:
+        """Snapshot the current rows into an IVF index (``ops/ivf.py``;
+        ``kwargs`` go to ``ivf_build``). Rows appended later are still
+        found, through an exact interval scan, until the next build. No-op
+        on an empty store."""
+        if self._quantized:
+            raise ValueError("IVF supports float32/bfloat16 stores only")
+        with self._dispatch_view() as (buf, _scales, count):
+            if not count:
+                return
+            kwargs.setdefault("outlier_frac", self.settings.ivf_outlier_frac)
+            self._ivf = ivf.ivf_build(buf, count, **kwargs)
+            self._ivf_count = count
+            self._esc_ema = None  # new buckets: re-learn the escalation yield
+
+    def adopt_ivf(self, arrays) -> None:
+        """Take an already built IVF snapshot of this store's current rows:
+        the nine arrays of a JAX ``IVFState`` as numpy (see
+        ``ops.ivf.adopt_ivf_state``)."""
+        if self._quantized:
+            raise ValueError("IVF supports float32/bfloat16 stores only")
+        with self._flush_lock:
+            self._flush_locked()
+            self._ivf = ivf.adopt_ivf_state(arrays, self._device, self._dtype)
+            self._ivf_count = self._count
+            self._esc_ema = None
+
+    @contextlib.contextmanager
+    def _pinned_view(self):
+        """Capture ``(buf, count)`` and PIN the buffer: until exit, a flush
+        writes into a copy of it (:meth:`_ensure_capacity_locked`), so the
+        captured tensor stays exactly what was captured through a long read
+        outside the lock (the background rebuild). The lock is held only
+        for the capture and the unpin."""
+        with self._flush_lock:
+            self._flush_locked()
+            buf, count = self._buf, self._count
+            self._pinned_bufs.append(buf)
+        try:
+            yield buf, count
+        finally:
+            with self._flush_lock:
+                self._pinned_bufs.remove(buf)
+
+    def build_ivf_background(self, **kwargs) -> threading.Thread | None:
+        """Rebuild the IVF snapshot on a thread and swap it in when done;
+        queries keep serving the current snapshot (plus the interval scan)
+        meanwhile. Returns the rebuild thread (the running one if a rebuild
+        is in flight), or None on an empty store; ``join()`` it to wait."""
+        with self._flush_lock:
+            self._flush_locked()
+            if not self._count:
+                return None
+            t = self._ivf_rebuild_thread
+            if t is not None and t.is_alive():
+                return t
+            t = threading.Thread(
+                target=self._rebuild_and_swap, kwargs=kwargs, daemon=True, name="tat-ivf-rebuild"
+            )
+            self._ivf_rebuild_thread = t
+        t.start()
+        return t
+
+    def _rebuild_and_swap(self, **kwargs) -> None:
+        kwargs.setdefault("outlier_frac", self.settings.ivf_outlier_frac)
+        with self._pinned_view() as (buf, count):
+            if not count:
+                return
+            state = ivf.ivf_build(buf, count, **kwargs)
+        with self._flush_lock:
+            # Append-only store: rows [0, count) are what the build read, so
+            # the swap is sound; rows appended since ride the interval scan.
+            if count >= self._ivf_count:
+                self._ivf = state
+                self._ivf_count = count
+                self._esc_ema = None
+
+    def _maybe_auto_rebuild_locked(self, count: int) -> None:
+        """Query-driven rebuild trigger (caller holds ``_flush_lock``): when
+        the appended fraction passes ``ivf_rebuild_frac``, start ONE
+        background rebuild (it takes the lock itself, in _pinned_view)."""
+        settings = self.settings
+        if not settings.ivf_auto_rebuild:
+            return
+        if count - self._ivf_count <= settings.ivf_rebuild_frac * max(self._ivf_count, 1):
+            return
+        t = self._ivf_rebuild_thread
+        if t is not None and t.is_alive():
+            return
+        t = threading.Thread(target=self._rebuild_and_swap, daemon=True, name="tat-ivf-rebuild")
+        self._ivf_rebuild_thread = t
+        t.start()
 
     def _shadow(self, buf: torch.Tensor | None = None, count: int | None = None) -> torch.Tensor:
         """Cached bf16 cast of the f32 buffer (the exact2 selection shadow),
@@ -624,6 +890,8 @@ class VectorStore:
         """Engine mode and auxiliary operand for :func:`ops.topk.topk_many`."""
         if self._quantized:
             return "quantized", scales
+        if self.settings.search_mode == "approx":
+            return "approx", None
         if self._use_exact2(k, count):
             if self._dtype == torch.float32:
                 return "exact2h", self._shadow(buf, count)
@@ -685,13 +953,29 @@ class VectorStore:
             padded[:, :b, : self._embedding_size] = qb
             q_dev = torch.from_numpy(padded).to(self._device)
             k = min(max_hits, count)
-            mode, aux = self._engine_mode(k, buf, scales, count)
-            out = topk.topk_many(buf, aux, q_dev, count, k=k, mode=mode)
+            state = self._ivf
+            if not self._quantized and self.settings.search_mode == "ivf" and state is not None:
+                # Coalesced serving rides the IVF snapshot too.
+                out = _ivf_many(
+                    state, buf, q_dev, count, self._ivf_count, k=k,
+                    B=min(self.settings.ivf_b, state.n_buckets),
+                )
+                if count > self._ivf_count:
+                    self._maybe_auto_rebuild_locked(count)
+                if not self.settings.ivf_certified:
+                    out = out[:2]
+            else:
+                mode, aux = self._engine_mode(k, buf, scales, count)
+                out = topk.topk_many(
+                    buf, aux, q_dev, count, k=k, mode=mode,
+                    recall_target=self.settings.recall_target,
+                )
         fetched = _fetch(*out)
         vals, idx = fetched[0], fetched[1]
         if len(fetched) > 2:
             # Per-query certificate resolution over the flattened R x b_pad
-            # population; padding slots carry no query and are pre-certified.
+            # population; padding slots carry no query and are pre-certified,
+            # and only the R x b real queries count.
             cert = np.array(fetched[2])
             cert[:, b:] = True
             flat = cert.size
@@ -703,6 +987,7 @@ class VectorStore:
                 k,
                 count,
                 flat,
+                r_n * b,
             )
             vals = v.reshape(vals.shape)
             idx = i.reshape(idx.shape)
@@ -733,7 +1018,7 @@ class VectorStore:
         if len(handle) == 7:  # exact2 dispatch: certificate checked here
             vals, idx, b, cert, q, k, count = handle
             vals, idx, cert_h = _fetch(vals, idx, cert)
-            vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b)
+            vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b, b)
         else:
             vals, idx, b = handle
             vals, idx = _fetch(vals, idx)
@@ -841,6 +1126,10 @@ class VectorStore:
             self._scales = None
             self._shadow_cache = None
             self._count = 0
+            # The snapshot indexes the rows cleared here.
+            self._ivf = None
+            self._ivf_count = 0
+            self._esc_ema = None
             with self._pending_lock:
                 self._pending = []
                 self._pending_rows = 0
