@@ -9,13 +9,15 @@ Phases, one JSON line each:
      seconds to build the kernels from ``typeagent_tpu_torch/csrc``;
   1. each kernel (K1 top-k, K2 bucket maxima, K2' bucket argmax, K3
      rescore, K4 interval top-k, K5 row-masked top-k, K6 int8 top-k, K7
-     int8 row-masked top-k) against its plain PyTorch version on the card,
+     int8 row-masked top-k, K8 int8-shadow bucket maxima, K9 packed-int4
+     bucket maxima) against its plain PyTorch version on the card,
      over d, b, k, dtype, a ragged count, exact duplicate rows across split,
      bucket and interval edges and inside one bucket, 1, 8 and 9 intervals
      (overlapping, (0, 0)-padded, one holding the count watermark), a
      one-bucket cluster and a store of one bucket, at 65,536 rows and
      (K4-K7) at 1M x 384 (later phases check each kernel again at their
-     shapes);
+     shapes; K8 and K9 at d = 128 and 384, and 100 for K9, b = 1, 8, 256,
+     a ragged watermark, a store of one bucket and a dead one);
   2. the main path at full width: a 1M x 384 f32 store ingested in 10
      chunks while it answers lookups, then served through LookupBatcher
      (64 concurrent requests), one batch-256 sync lookup and one keyed
@@ -48,7 +50,20 @@ Phases, one JSON line each:
      b=256 served through LookupBatcher. Then 10,000,000 x 384 with 10,000
      topics: build seconds, recall and B=16 latency beside exact1, and the
      certified pipeline. Each scale warms its serving routes first
-     (warm_serving: every batch bucket, the escalation pass, the rerun).
+     (warm_serving: every batch bucket, the escalation pass, the rerun);
+ 10. the int8-selection hybrid exact search (K8 + K3,
+     ``cosine_topk_exact2_hybrid_i8``) at the shape of
+     tools/tpu_exact2_probe.py hybrid-i8: 1,000,000 x 384 unit f32 rows
+     made on the card, the int8 shadow from quantize_rows_device, 1,024
+     queries in 4 batches of 256, k=10, slack 14 and 22: recall@10 against
+     the plain f32 top-k, certificate rate, every certified answer equal
+     to it up to ties within 2e-6, batch-256 latency beside the bf16-shadow
+     hybrid on the same rows;
+ 11. int4 selection (K9 + K3, ``cosine_topk_exact2_i4``) at the shape of
+     tools/tpu_int4_probe.py: the same rows, the packed shadow from
+     quantize_rows_int4_device, bf16 (as the probe) and f32 rescore
+     buffers, slack 2, 6 and 14: recall@10, the certificate rate (a
+     heuristic, not a proof), batch-256 latency.
 
 Each corpus search is checked three ways: the API's hits are the kernel's
 output on the same operands, that output agrees with the plain version
@@ -56,7 +71,14 @@ output on the same operands, that output agrees with the plain version
 lies in its scope; a probe row from each conversation finds itself.
 
 The line before the last holds every kernel's launches, error and time
-beside its plain version's; the last line is the device summary. Any
+beside its plain version's, its bound on this card (the larger of the
+bytes it must move over 3.35 TB/s and its operations over the peak of
+their type: 67 TFLOP/s f32, 989 bf16; rows a scope excludes are not
+counted), the share of that bound it reaches, and the time of
+``torch.matmul`` of the same operands in the kernel's product type
+(``product_ms``: the product alone, not the same function; no single
+PyTorch call computes any of these kernels' functions, so ``library_ms``
+is null); the last line is the device summary. Any
 failed check exits non-zero. There is no CPU mode: without a CUDA device
 the script exits non-zero.
 
@@ -92,13 +114,23 @@ CORPUS_INT8_SEG_ROWS = 1_250_000  # 24 x 1,250,000 = 30,000,000 rows
 CORPUS_CHUNK = 500_000  # rows made on the card per append_device
 CORPUS_B = 64
 KERNELS = ("topk", "bucket_maxima", "bucket_argmax", "rescore", "topk_iv", "topk_mask", "topk_q",
-           "topk_mq")
+           "topk_mq", "bucket_maxima_q", "bucket_maxima_q4")
 # bench.py section B's clustered corpus: (rows, topics) per scale.
 SIGMA_C, BG_C = 0.35, 0.02
 IVF_SCALES = ((1_000_000, 1_000), (10_000_000, 10_000))
 IVF_BS = (8, 12, 16)
 IVF_QUERIES = 1024  # 4 batches of 256
 IVF_CHUNK = 500_000  # rows made on the card per step
+# Phases 10-11: the probes' operating point.
+SEL_QUERIES = 1024  # 4 batches of 256
+I8_SLACKS = (14, 22)
+I4_SLACKS = (2, 6, 14)
+# An H100 SXM's published peaks (dense): f32 outside the tensor cores (the
+# f32 scans must score at full f32, so no TF32), bf16 tensor cores (bf16,
+# int8 and int4 rows meet bf16 queries), device memory.
+PEAK_F32 = 67e12
+PEAK_BF16 = 989e12
+HBM_BPS = 3.35e12
 
 
 def emit(obj: dict) -> None:
@@ -136,7 +168,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from typeagent_tpu_torch.models.adapters import create_test_embedding_model
-    from typeagent_tpu_torch.ops import _build, ivf, topk
+    from typeagent_tpu_torch.ops import _build, int4, ivf, topk
     from typeagent_tpu_torch.parallel import CorpusVectorStore
     from typeagent_tpu_torch.serve import LookupBatcher
     from typeagent_tpu_torch.utils.metrics import METRICS
@@ -148,6 +180,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     kernel_err = dict.fromkeys(KERNELS, 0.0)
     kernel_ms: dict[str, tuple[float, float]] = {}
+    kernel_bound: dict[str, tuple[float, str]] = {}  # (bound ms, "bytes" | "operations")
+    kernel_product_ms: dict[str, float] = {}
     # Launches of each main path, each counted from a reset just before the
     # path to a read just after it (comparison launches come later).
     path_launches = dict.fromkeys(KERNELS, 0)
@@ -198,12 +232,35 @@ def main() -> int:
         p2 = timer(plain_fn)
         return (k1 + k2) / 2, (p1 + p2) / 2
 
+    def bound_of(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+        """The least time the card could take: operations over the peak of
+        their type or bytes over the memory rate, whichever is larger."""
+        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    def scan_bound(rows: int, d_pad: int, itemsize: int, b: int, out_bytes: int, peak: float,
+                   extra_bytes: int = 0) -> tuple[float, str]:
+        """A scan of ``rows`` rows against b f32 queries: each row read
+        once (plus ``extra_bytes``: scales, a mask), the queries once, the
+        output written once; 2*b*rows*d_pad operations."""
+        nbytes = rows * d_pad * itemsize + extra_bytes + b * d_pad * 4 + out_bytes
+        return bound_of(2.0 * b * rows * d_pad, nbytes, peak)
+
+    def live_rows(count: int) -> int:
+        """Rows of the buckets that hold a live row: what the kernels read,
+        and the row count of the ``torch.matmul`` yardsticks (a multiple
+        of 128, so cuBLAS keeps its aligned kernels)."""
+        return -(-count // 128) * 128
+
+    def record(name, ms_pair, bound, product_ms):
+        kernel_ms[name], kernel_bound[name], kernel_product_ms[name] = ms_pair, bound, product_ms
+
     plain_of = {
         "fused_topk": topk.topk_plain, "bucket_maxima": topk.bucket_maxima_plain,
         "bucket_argmax": topk.bucket_argmax_plain,
         "rescore_selected": topk.rescore_selected_plain, "fused_topk_iv": topk.topk_iv_plain,
         "fused_topk_masked": topk.topk_masked_plain, "fused_topk_q": topk.topk_q_plain,
-        "fused_topk_mq": topk.topk_mq_plain,
+        "fused_topk_mq": topk.topk_mq_plain, "bucket_maxima_q": topk.bucket_maxima_q_plain,
     }
 
     @contextlib.contextmanager
@@ -510,6 +567,40 @@ def main() -> int:
         (64, 256), (10,), "1M",
     )
     del m_dev
+
+    # K8 and K9: the int8 and packed-int4 selection shadows of unit rows
+    # (codes of both signs in both nibbles), a ragged watermark (the last
+    # two buckets dead), a store of one bucket and a dead store.
+    def check_selection(name, got, ref, count, what):
+        err = (got - ref).abs().max().item()
+        require(err <= TOL_INT8, f"{what}: max value error {err} > {TOL_INT8}")
+        dead = torch.arange(got.shape[1], device=dev) * 128 >= count
+        require(bool((got[:, dead] == -3.0).all()) and bool((got[:, ~dead] > -2.0).all()),
+                f"{what}: dead or live buckets wrong")
+        kernel_err[name] = max(kernel_err[name], err)
+
+    n_pad = 1 << 16
+    for d in (100, 128, 384):
+        rows = torch.nn.functional.normalize(torch.randn((n_pad, d), generator=gen, device=dev), dim=1)
+        qs = torch.nn.functional.normalize(torch.randn((256, d), generator=gen, device=dev), dim=1)
+        emb_q, sc = topk.quantize_rows_device(rows)
+        packed, sc4 = int4.quantize_rows_int4_device(rows)
+        for n_rows, count, bs in ((n_pad, n_pad - 333, (1, 8, 256)), (128, 77, (8,)), (256, 0, (8,))):
+            for b in bs:
+                q = qs[:b].contiguous()
+                if d % 64 == 0:
+                    check_selection("bucket_maxima_q",
+                                    topk.bucket_maxima_q(emb_q[:n_rows], sc[:n_rows], q, count),
+                                    topk.bucket_maxima_q_plain(emb_q[:n_rows], sc[:n_rows], q, count),
+                                    count, f"K8 d={d} n={n_rows} count={count} b={b}")
+                    checks += 1
+                q_split = int4.split_pad_queries(q, d)
+                check_selection("bucket_maxima_q4",
+                                int4.bucket_maxima_q4(packed[:n_rows], sc4[:n_rows], q_split, count),
+                                int4.bucket_maxima_q4_plain(packed[:n_rows], sc4[:n_rows], q_split, count),
+                                count, f"K9 d={d} n={n_rows} count={count} b={b}")
+                checks += 1
+        del rows, emb_q, packed
     emit({"phase": 1, "checks": checks, "max_abs_err": kernel_err,
           "topk_err_by_dtype": by_dtype, "ok": True})
 
@@ -595,15 +686,31 @@ def main() -> int:
     ref_v, _ = topk.topk_plain(buf, qd, count, K_MAIN)
     kernel_err["topk"] = max(kernel_err["topk"], check_raw_topk(
         buf, qd, count, K_MAIN, got_v, got_i, ref_v, TOL_F32, "K1 1M f32"))
-    kernel_ms["bucket_maxima"] = in_turns(
-        cuda_ms, lambda: topk.bucket_maxima(shadow, qd, count),
-        lambda: topk.bucket_maxima_plain(shadow, qd, count))
-    kernel_ms["rescore"] = in_turns(
-        cuda_ms, lambda: topk.rescore_selected(buf, qd, ids),
-        lambda: topk.rescore_selected_plain(buf, qd, ids))
-    kernel_ms["topk"] = in_turns(
-        cuda_ms, lambda: topk.fused_topk(buf, qd, count, K_MAIN),
-        lambda: topk.topk_plain(buf, qd, count, K_MAIN))
+    d_pad, nb = buf.shape[1], shadow.shape[0] // 128
+    qd_bf16 = qd.to(torch.bfloat16)
+    record("bucket_maxima",
+           in_turns(cuda_ms, lambda: topk.bucket_maxima(shadow, qd, count),
+                    lambda: topk.bucket_maxima_plain(shadow, qd, count)),
+           scan_bound(count, d_pad, 2, 256, 256 * nb * 4, PEAK_BF16),
+           cuda_ms(lambda: torch.matmul(qd_bf16, shadow[: live_rows(count)].T), iters=3))
+    # K3 reads each distinct selected bucket once (the same bucket chosen
+    # by several queries comes from L2).
+    n_sel = ids.shape[1]
+    distinct = torch.unique(ids).numel()
+    gathered = buf[topk._bucket_row_ids(ids).long()]  # [256, B*128, d_pad]: the product's operand
+    record("rescore",
+           in_turns(cuda_ms, lambda: topk.rescore_selected(buf, qd, ids),
+                    lambda: topk.rescore_selected_plain(buf, qd, ids)),
+           bound_of(2.0 * 256 * n_sel * 128 * d_pad,
+                    distinct * 128 * d_pad * 4 + 256 * d_pad * 4 + ids.numel() * 4 + 256 * n_sel * 128 * 4,
+                    PEAK_F32),
+           cuda_ms(lambda: torch.bmm(gathered, qd[:, :, None]), iters=3))
+    del gathered
+    record("topk",
+           in_turns(cuda_ms, lambda: topk.fused_topk(buf, qd, count, K_MAIN),
+                    lambda: topk.topk_plain(buf, qd, count, K_MAIN)),
+           scan_bound(count, d_pad, 4, 256, 256 * K_MAIN * 8, PEAK_F32),
+           cuda_ms(lambda: torch.matmul(qd, buf[: live_rows(count)].T), iters=3))
 
     def batch_lookup(s):
         return lambda: s.fuzzy_lookup_embeddings_batch(big, max_hits=K_MAIN)
@@ -625,6 +732,7 @@ def main() -> int:
         "recall_served": recall_s, "recall_batch256": recall_b,
         "max_score_err": max(err_s, err_b), "materialized_calls": launches["materialized_topk"],
         "ms_per_batch256": path_ms, "plain_ms_per_batch256": path_plain_ms,
+        "k3_distinct_buckets": distinct,
         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3), "ok": True,
     })
 
@@ -761,6 +869,14 @@ def main() -> int:
             return corpus.search(q_raw, k=K_MAIN, conversations=scopes[scope])
 
         names = list(scopes) + (["subset"] if with_subset else [])
+        # The product of the same operands in the scans' product type (the
+        # whole store against the b queries), once for the phase.
+        if sc is None:
+            product_ms = cuda_ms(lambda: torch.matmul(q_dev, emb[: live_rows(count)].T), iters=3)
+        else:
+            emb_bf16, q_bf16 = emb[: live_rows(count)].to(torch.bfloat16), q_dev.to(torch.bfloat16)
+            product_ms = cuda_ms(lambda: torch.matmul(q_bf16, emb_bf16.T), iters=3)
+            del emb_bf16
         topk.reset_launch_counts()
         results = {scope: run_search(scope) for scope in names}
         counts = topk.launch_counts()
@@ -837,12 +953,24 @@ def main() -> int:
 
             api_ms, api_plain_ms = in_turns(
                 lambda fn: host_ms(fn, iters=3), lambda: run_search(scope), plain_run)
+            # The bound counts the rows the scope needs (live and in
+            # scope), their scales, and the whole row mask if the kernel
+            # reads one.
+            scope_rows = count if mask is None else int((mask[:count] > 0).sum())
+            extra = scope_rows * 4 if sc is not None else 0
+            if name in ("topk_mask", "topk_mq"):
+                extra += n_rows * 4
+            bound = scan_bound(scope_rows, emb.shape[1], emb.element_size(), CORPUS_B,
+                               CORPUS_B * K_MAIN * 8, PEAK_F32 if sc is None else PEAK_BF16, extra)
             # K1's entry stays phase 2's (1M x 384, b=256); the others take
             # their first corpus search.
-            kernel_ms.setdefault(name, (ms, plain_ms))
+            if name not in kernel_ms:
+                record(name, (ms, plain_ms), bound, product_ms)
             out[scope] = {"kernel": name, "intervals": n_iv, "max_abs_err": err,
-                          "kernel_ms": ms, "plain_kernel_ms": plain_ms,
+                          "kernel_ms": ms, "plain_kernel_ms": plain_ms, "scope_rows": scope_rows,
+                          "bound_ms": bound[0], "bound_by": bound[1],
                           "ms_per_batch": api_ms, "plain_ms_per_batch": api_plain_ms}
+        out["product_ms"] = product_ms
         out["peak_mem_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
         out["ok"] = True
         return out
@@ -935,8 +1063,13 @@ def main() -> int:
                     f"approx {dtype}: scores differ from the plain route")
         ms_k, ms_p = in_turns(cuda_ms, lambda: topk.bucket_argmax(buf, qd8, count),
                               lambda: topk.bucket_argmax_plain(buf, qd8, count))
+        q_op = qd8 if dtype == "float32" else qd8.to(torch.bfloat16)
+        product_ms = cuda_ms(lambda: torch.matmul(q_op, buf[: live_rows(count)].T), iters=3)
+        nb = buf.shape[0] // 128
+        bound = scan_bound(count, buf.shape[1], buf.element_size(), 256, 256 * nb * 8,
+                           PEAK_F32 if dtype == "float32" else PEAK_BF16)
         if dtype == "float32":
-            kernel_ms["bucket_argmax"] = (ms_k, ms_p)
+            record("bucket_argmax", (ms_k, ms_p), bound, product_ms)
         # The exact route on the same store (hybrid exact2 for f32, exact2
         # for bf16) beside the approx route.
         ms_approx, ms_exact = in_turns(host_ms, lookup_as(s_approx, "approx"), lookup_as(s_approx, "exact"))
@@ -946,6 +1079,7 @@ def main() -> int:
             "recall_served": recall_vs(served_rows, np.concatenate(ref_idx)),
             "recall_sync": recall_vs(sync_a[dtype], ref_idx[0]),
             "k2p_max_abs_err": err, "k2p_ms": ms_k, "k2p_plain_ms": ms_p,
+            "k2p_bound_ms": bound[0], "k2p_bound_by": bound[1], "k2p_product_ms": product_ms,
             "ms_per_batch256": ms_approx, "exact_route_ms_per_batch256": ms_exact,
             "plain_ms_per_batch256": ms_plain,
         }
@@ -1124,6 +1258,125 @@ def main() -> int:
     out9["ok"] = True
     emit(out9)
 
+    # ------------------------- 10-11. int8 and int4 selection, 1M rows
+    torch.cuda.reset_peak_memory_stats()
+    n_pad = (N_MAIN + 1023) // 1024 * 1024  # the watermark lies inside a bucket
+    rows = torch.zeros((n_pad, D_MAIN), device=dev)
+    rows[:N_MAIN] = torch.nn.functional.normalize(
+        torch.randn((N_MAIN, D_MAIN), generator=gen, device=dev), dim=1)
+    sel_q = [to_dev(normed(rng, 256, D_MAIN)) for _ in range(SEL_QUERIES // 256)]
+    # The oracle: the plain f32 top-k (what exact1 returns) of every batch.
+    oracle = [topk.topk_plain(rows, q, N_MAIN, K_MAIN) for q in sel_q]
+
+    def selection_quality(results, buf, what, require_exact):
+        """Recall@10 of (vals, idx, cert) batches against the oracle, the
+        certificate rate, and how many certified answers differ from the
+        oracle beyond ties within TOL_F32 (required to be none where the
+        certificate is a proof). Every answer's scores are its rows' own
+        in the rescore buffer ``buf`` (f32 queries, as K3 scores them)."""
+        hits = certified = inexact = tie_only = 0
+        for (vals, idx, cert), q, (ref_raw, ref_idx) in zip(results, sel_q, oracle):
+            require(bool(torch.isfinite(vals).all()) and tuple(idx.shape) == (256, K_MAIN),
+                    f"{what}: bad output")
+            own = torch.einsum("bkd,bd->bk", buf[idx.long()].float(), q)
+            require(bool(((((own + 1) * 0.5).clamp(0, 1) - vals).abs() <= TOL_F32).all()),
+                    f"{what}: a score is not its row's")
+            raw = picked_raw(rows, None, q, idx)  # the f32 truth
+            extra = ~(idx[:, :, None] == ref_idx[:, None, :]).any(dim=2)
+            hits += int((~extra).sum())
+            beyond_tie = (extra & (raw < ref_raw[:, -1:] - TOL_F32)).any(dim=1)
+            certified += int(cert.sum())
+            inexact += int((beyond_tie & cert).sum())
+            tie_only += int((extra.any(dim=1) & ~beyond_tie & cert).sum())
+        if require_exact:
+            require(inexact == 0, f"{what}: {inexact} certified answers differ from the oracle")
+        return {"recall": hits / (SEL_QUERIES * K_MAIN), "cert_rate": certified / SEL_QUERIES,
+                "certified_inexact": inexact, "certified_differing_by_ties": tie_only}
+
+    # 10. the int8-selection hybrid: K8 over the int8 shadow, K3 from f32.
+    shadow_q, shadow_s = topk.quantize_rows_device(rows)
+    shadow_bf16 = rows.to(torch.bfloat16)
+    topk.reset_launch_counts()
+    runs = {slack: [topk.cosine_topk_exact2_hybrid_i8(rows, shadow_q, shadow_s, q, N_MAIN, K_MAIN,
+                                                      slack=slack) for q in sel_q]
+            for slack in I8_SLACKS}
+    counts = topk.launch_counts()
+    add_path_launches(counts)
+    n_calls = len(I8_SLACKS) * len(sel_q)
+    require(counts["bucket_maxima_q"] == n_calls and counts["rescore"] == n_calls
+            and counts["bucket_maxima"] == 0, f"int8 hybrid: route {counts}")
+    out10 = {"phase": 10, "rows": N_MAIN, "d": D_MAIN, "b": 256, "k": K_MAIN,
+             "queries": SEL_QUERIES, "launches": counts}
+    for slack, res in runs.items():
+        out10[f"slack{slack}"] = selection_quality(res, rows, f"int8 hybrid slack {slack}", True)
+    q0 = sel_q[0]
+    ms_i8, ms_bf16 = in_turns(
+        host_ms, lambda: topk.cosine_topk_exact2_hybrid_i8(rows, shadow_q, shadow_s, q0, N_MAIN, K_MAIN),
+        lambda: topk.cosine_topk_exact2_hybrid(rows, shadow_bf16, q0, N_MAIN, K_MAIN))
+    got = topk.bucket_maxima_q(shadow_q, shadow_s, q0, N_MAIN)
+    err = (got - topk.bucket_maxima_q_plain(shadow_q, shadow_s, q0, N_MAIN)).abs().max().item()
+    require(err <= TOL_INT8, f"K8 1M: error {err} > {TOL_INT8}")
+    kernel_err["bucket_maxima_q"] = max(kernel_err["bucket_maxima_q"], err)
+    codes_bf16, q0_bf16 = shadow_q[: live_rows(N_MAIN)].to(torch.bfloat16), q0.to(torch.bfloat16)
+    record("bucket_maxima_q",
+           in_turns(cuda_ms, lambda: topk.bucket_maxima_q(shadow_q, shadow_s, q0, N_MAIN),
+                    lambda: topk.bucket_maxima_q_plain(shadow_q, shadow_s, q0, N_MAIN)),
+           scan_bound(N_MAIN, D_MAIN, 1, 256, 256 * (n_pad // 128) * 4, PEAK_BF16, N_MAIN * 4),
+           cuda_ms(lambda: torch.matmul(q0_bf16, codes_bf16.T), iters=3))
+    del codes_bf16
+    out10.update({"ms_per_batch256": ms_i8, "hybrid_bf16_ms_per_batch256": ms_bf16,
+                  "k8_max_abs_err": err, "k8_ms": kernel_ms["bucket_maxima_q"][0],
+                  "k8_plain_ms": kernel_ms["bucket_maxima_q"][1],
+                  "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3), "ok": True})
+    emit(out10)
+    del shadow_q, shadow_s, runs
+
+    # 11. int4 selection: K9 over the packed shadow, K3 from bf16 or f32.
+    packed, p_scales = int4.quantize_rows_int4_device(rows)
+    buffers = {"bfloat16": shadow_bf16, "float32": rows}
+    topk.reset_launch_counts()
+    runs = {(dt, slack): [int4.cosine_topk_exact2_i4(buf, packed, p_scales, q, N_MAIN, K_MAIN, slack=slack)
+                          for q in sel_q]
+            for dt, buf in buffers.items() for slack in I4_SLACKS}
+    counts = topk.launch_counts()
+    add_path_launches(counts)
+    n_calls = len(runs) * len(sel_q)
+    require(counts["bucket_maxima_q4"] == n_calls and counts["rescore"] == n_calls,
+            f"int4 selection: route {counts}")
+    out11 = {"phase": 11, "rows": N_MAIN, "d": D_MAIN, "packed_width": packed.shape[1], "b": 256,
+             "k": K_MAIN, "queries": SEL_QUERIES, "launches": counts,
+             "certificate": "heuristic (covers the measured int4 error, not a bound)"}
+    for (dt, slack), res in runs.items():
+        buf = buffers[dt]
+        quality = selection_quality(res, buf, f"int4 {dt} slack {slack}", False)
+        quality["ms_per_batch256"] = host_ms(
+            lambda: int4.cosine_topk_exact2_i4(buf, packed, p_scales, q0, N_MAIN, K_MAIN, slack=slack), iters=5)
+        out11[f"{dt}_slack{slack}"] = quality
+    # Selection quality is the algorithm's; a recall this far off means a
+    # broken selection (the JAX records give ~0.96 at slack 14).
+    require(out11["float32_slack14"]["recall"] >= 0.8, f"int4: recall {out11['float32_slack14']['recall']}")
+    q_split = int4.split_pad_queries(q0, D_MAIN)
+    got = int4.bucket_maxima_q4(packed, p_scales, q_split, N_MAIN)
+    err = (got - int4.bucket_maxima_q4_plain(packed, p_scales, q_split, N_MAIN)).abs().max().item()
+    require(err <= TOL_INT8, f"K9 1M: error {err} > {TOL_INT8}")
+    kernel_err["bucket_maxima_q4"] = max(kernel_err["bucket_maxima_q4"], err)
+    unpacked = int4._unpack(packed[: live_rows(N_MAIN)]).to(torch.bfloat16)  # [n, 2*dh]: the product's operand
+    # The bound counts the d = 384 columns the rows hold, not the packing's
+    # zero padding (2*dh = 512 deep).
+    record("bucket_maxima_q4",
+           in_turns(cuda_ms, lambda: int4.bucket_maxima_q4(packed, p_scales, q_split, N_MAIN),
+                    lambda: int4.bucket_maxima_q4_plain(packed, p_scales, q_split, N_MAIN)),
+           bound_of(2.0 * 256 * N_MAIN * D_MAIN,
+                    N_MAIN * packed.shape[1] + N_MAIN * 4 + q_split.numel() * 2 + 256 * (n_pad // 128) * 4,
+                    PEAK_BF16),
+           cuda_ms(lambda: torch.matmul(q_split, unpacked.T), iters=3))
+    del unpacked
+    out11.update({"k9_max_abs_err": err, "k9_ms": kernel_ms["bucket_maxima_q4"][0],
+                  "k9_plain_ms": kernel_ms["bucket_maxima_q4"][1],
+                  "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3), "ok": True})
+    emit(out11)
+    del rows, shadow_bf16, packed, runs, buffers
+
     # --------------------------------------------------------------- summary
     for name in KERNELS:
         require(path_launches[name] > 0, f"no main path launched the {name} kernel")
@@ -1136,12 +1389,17 @@ def main() -> int:
         "topk_mask": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:511"),
         "topk_q": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:662"),
         "topk_mq": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:757"),
+        "bucket_maxima_q": ("csrc/bucket_maxima.cu", "typeagent_tpu/ops/topk.py:1233"),
+        "bucket_maxima_q4": ("csrc/bucket_maxima.cu", "typeagent_tpu/ops/int4.py:215"),
     }
     print(smi_line(), flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"typeagent_tpu_torch/{src}", "replaces": rep,
          "launches": path_launches[name], "max_abs_err": kernel_err[name],
-         "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1]}
+         "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1],
+         "bound_ms": kernel_bound[name][0], "bound_by": kernel_bound[name][1],
+         "bound_share": kernel_bound[name][0] / kernel_ms[name][0],
+         "library_ms": None, "product_ms": kernel_product_ms[name]}
         for name, (src, rep) in sources.items()
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """Parity: the port's appendable buffers (typeagent_tpu_torch/ops/append.py)
 against the JAX package's (typeagent_tpu/ops/append.py), same numpy rows."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,7 +43,7 @@ def test_append_then_grow_matches_jax(dtype):
 
 
 def test_exact_capacity_hint_matches_jax():
-    tbuf = append.make_buffer(1024, 128)
+    tbuf = append.make_buffer(1024, 128, device="cpu")
     jbuf = jax_append.make_buffer(1024, 128)
     for needed, hint in [(1500, 5000), (6000, None), (9000, 8000)]:
         tbuf = append.grow_buffer(tbuf, needed, exact_capacity=hint)
@@ -50,7 +52,7 @@ def test_exact_capacity_hint_matches_jax():
 
 
 def test_append_is_in_place_and_grow_keeps_rows():
-    buf = append.make_buffer(1024, 128)
+    buf = append.make_buffer(1024, 128, device="cpu")
     before = buf.data_ptr()
     rows = np.ones((3, 128), np.float32)
     out = append.append_rows(buf, rows, 10)
@@ -63,6 +65,22 @@ def test_append_is_in_place_and_grow_keeps_rows():
 
 
 def test_append_overflow_raises():
-    buf = append.make_buffer(1024, 128)
+    buf = append.make_buffer(1024, 128, device="cpu")
     with pytest.raises(ValueError, match="overflows"):
         append.append_rows(buf, np.zeros((10, 128), np.float32), 1020)
+
+
+@pytest.mark.parametrize("fn", [append.make_buffer, append.make_scales])
+def test_allocators_default_to_the_card(fn):
+    """As the JAX buffers land on the default device (the accelerator), the
+    port's allocate on CUDA unless the caller names a device (read from the
+    signature: this machine may have no card)."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_scales_grow_on_their_own_device():
+    scales = append.make_scales(1024, device="cpu")
+    scales[:3] = 0.5
+    grown = append.grow_scales(scales, 2048)
+    assert grown.device.type == "cpu" and grown.shape == (2048,)
+    assert float(grown[:3].sum()) == 1.5 and bool((grown[3:] == 1.0).all())

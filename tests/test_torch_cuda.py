@@ -7,7 +7,8 @@ load):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: raw f32 scores 2e-6 (summation order differs, no TF32);
-bf16 stores 1e-5 (exact bf16 products, f32 sums).
+bf16 stores and the int8 and int4 shadows 1e-5 (exact bf16 products, f32
+sums, times the row's scale).
 """
 
 import numpy as np
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from typeagent_tpu_torch.models.adapters import create_test_embedding_model
-from typeagent_tpu_torch.ops import topk
+from typeagent_tpu_torch.ops import int4, topk
 from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings, VectorStore
 
 pytestmark = pytest.mark.cuda
@@ -381,3 +382,89 @@ def test_corpus_on_cuda_matches_cpu_corpus(dev, dtype):
         for a, b in zip(got, want):
             assert [(h.conversation, h.local_ordinal) for h in a] == [(h.conversation, h.local_ordinal) for h in b]
             np.testing.assert_allclose([h.score for h in a], [h.score for h in b], atol=1e-5)
+
+
+def _unit_rows(rng, n, d, dev):
+    m = rng.standard_normal((n, d)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    return torch.from_numpy(m).to(dev)
+
+
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("n_pad,count,b", [(9216, 9000 - 45, 37), (9216, 9216, 256), (128, 77, 1), (256, 0, 8)])
+def test_bucket_maxima_q_matches_plain(dev, d, n_pad, count, b):
+    """K8 over an int8 shadow: ragged and full watermarks, a one-bucket
+    store, a dead store (every bucket -3)."""
+    rng = np.random.default_rng(16)
+    emb_q, scales = topk.quantize_rows_device(_unit_rows(rng, n_pad, d, dev))
+    q = _queries(rng, b, d, dev)
+    topk.reset_launch_counts()
+    got = topk.bucket_maxima_q(emb_q, scales, q, count)
+    ref = topk.bucket_maxima_q_plain(emb_q, scales, q, count)
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["bucket_maxima_q"] == 1
+    assert tuple(got.shape) == (b, n_pad // 128)
+    assert (got - ref).abs().max().item() <= 1e-5
+    dead = torch.arange(n_pad // 128, device=dev) * 128 >= count
+    assert bool((got[:, dead] == -3.0).all()) and bool((got[:, ~dead] > -2.0).all())
+
+
+@pytest.mark.parametrize("d", [100, 128, 384])
+@pytest.mark.parametrize("n_pad,count,b", [(9216, 9000 - 45, 37), (9216, 9216, 256), (128, 77, 1), (256, 0, 8)])
+def test_bucket_maxima_q4_matches_plain(dev, d, n_pad, count, b):
+    """K9 over a packed int4 shadow (d = 100: halves of 50, dh 128); codes
+    of both signs in both nibbles."""
+    rng = np.random.default_rng(17)
+    packed, scales = int4.quantize_rows_int4_device(_unit_rows(rng, n_pad, d, dev))
+    qs = int4.split_pad_queries(_queries(rng, b, d, dev), d)
+    topk.reset_launch_counts()
+    got = int4.bucket_maxima_q4(packed, scales, qs, count)
+    ref = int4.bucket_maxima_q4_plain(packed, scales, qs, count)
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["bucket_maxima_q4"] == 1
+    assert tuple(got.shape) == (b, n_pad // 128)
+    assert (got - ref).abs().max().item() <= 1e-5
+    dead = torch.arange(n_pad // 128, device=dev) * 128 >= count
+    assert bool((got[:, dead] == -3.0).all()) and bool((got[:, ~dead] > -2.0).all())
+
+
+def test_selection_wrappers_reject_bad_operands(dev):
+    emb_q = torch.zeros((1024, 96), dtype=torch.int8, device=dev)  # 96 % 64 != 0
+    with pytest.raises(ValueError, match="width % 64"):
+        topk.bucket_maxima_q(emb_q, torch.ones(1024, device=dev), torch.zeros((4, 96), device=dev), 10)
+    packed = torch.zeros((1024, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="queries_split"):
+        int4.bucket_maxima_q4(packed, torch.ones(1024, device=dev), torch.zeros((4, 256), device=dev), 10)
+
+
+@pytest.mark.parametrize("search", ["hybrid_i8", "i4_f32", "i4_bf16"])
+def test_selection_searches_on_cuda_match_cpu(dev, search):
+    """The int8-selection hybrid and int4 selection (f32 and bf16 rescore
+    buffers) on the card against the same search on the CPU: K8 or K9 and
+    K3 launched, certificates equal, scores within 2e-6 (1e-5 for bf16),
+    indices equal except at ties."""
+    rng = np.random.default_rng(18)
+    n_pad, count, d, k = 8192, 8000, 128, 10
+    m = _unit_rows(rng, n_pad, d, torch.device("cpu"))
+    q = _queries(rng, 24, d, "cpu").bfloat16().float()
+    out = {}
+    topk.reset_launch_counts()
+    for device in ("cpu", "cuda"):
+        emb, qd = m.to(device), q.to(device)
+        if search == "hybrid_i8":
+            emb_q, scales = topk.quantize_rows_device(emb)
+            out[device] = topk.cosine_topk_exact2_hybrid_i8(emb, emb_q, scales, qd, count, k)
+        else:
+            packed, scales = int4.quantize_rows_int4_device(emb)
+            buf = emb.bfloat16() if search == "i4_bf16" else emb
+            out[device] = int4.cosine_topk_exact2_i4(buf, packed, scales, qd, count, k)
+    counts = topk.launch_counts()
+    assert counts["bucket_maxima_q" if search == "hybrid_i8" else "bucket_maxima_q4"] == 1
+    assert counts["rescore"] == 1
+    tol = 1e-5 if search == "i4_bf16" else 2e-6
+    (cv, ci, cc), (gv, gi, gc) = out["cpu"], (t.cpu() for t in out["cuda"])
+    assert torch.equal(cc, gc)
+    assert (cv - gv).abs().max().item() <= tol
+    for a, b, va, vb in zip(ci.tolist(), gi.tolist(), cv.tolist(), gv.tolist()):
+        for i, v in zip(b, vb):
+            assert i in a or abs(v - va[-1]) <= tol

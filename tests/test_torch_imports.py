@@ -58,6 +58,7 @@ def test_package_has_the_slice_modules():
         "typeagent_tpu_torch.parallel.corpus",
         "typeagent_tpu_torch.ops.ivf",
         "typeagent_tpu_torch.parallel.ivf",
+        "typeagent_tpu_torch.ops.int4",
     ):
         assert name in MODULES
 
@@ -89,9 +90,9 @@ def test_import_compiles_nothing():
 
 
 def test_new_modules_import_without_jax():
-    """The corpus store, the scoped/int8 and approx routes and the IVF
-    modules import in a process where importing jax, ml_dtypes, pydantic or
-    httpx fails."""
+    """The corpus store, the scoped/int8 and approx routes, the IVF
+    modules and the int8 and int4 selection searches import in a process
+    where importing jax, ml_dtypes, pydantic or httpx fails."""
     code = (
         "import builtins\n"
         "real = builtins.__import__\n"
@@ -109,6 +110,9 @@ def test_new_modules_import_without_jax():
         "    cosine_topk_approx)\n"
         "from typeagent_tpu_torch.ops.ivf import IVFState, ivf_build, ivf_topk, adopt_ivf_state\n"
         "from typeagent_tpu_torch.parallel.ivf import ShardedIVF, build_sharded_ivf\n"
+        "from typeagent_tpu_torch.ops.topk import bucket_maxima_q, cosine_topk_exact2_hybrid_i8\n"
+        "from typeagent_tpu_torch.ops.int4 import (bucket_maxima_q4, cosine_topk_exact2_i4,\n"
+        "    quantize_rows_int4_device)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))

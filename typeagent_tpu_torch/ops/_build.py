@@ -134,6 +134,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tat_topk_scan_mq": [p, p, *geometry, p, *tail],
         "tat_topk_merge": [p, p, i32, i32, i32, p, p, p],
         "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, p, p, p],
+        "tat_bucket_maxima_q": [p, i32, p, p, i64, i32, i32, i64, p, p],
         "tat_rescore": [p, i32, p, p, i64, i32, i32, i32, p, p],
     }
     for name, argtypes in signatures.items():

@@ -29,9 +29,11 @@ def make_buffer(
     capacity: int,
     dim_pad: int,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
-    """Allocate a zeroed [capacity, dim_pad] buffer on ``device``."""
+    """Allocate a zeroed [capacity, dim_pad] buffer on ``device`` (the card
+    unless the caller names another, as the JAX buffers land on the default
+    device, the accelerator)."""
     return torch.zeros((capacity, dim_pad), dtype=dtype, device=device)
 
 
@@ -79,8 +81,9 @@ def grow_buffer(
     return out
 
 
-def make_scales(capacity: int, device: torch.device | str = "cpu") -> torch.Tensor:
-    """An int8 store's [capacity] f32 scale buffer, padded with 1.0."""
+def make_scales(capacity: int, device: torch.device | str = "cuda") -> torch.Tensor:
+    """An int8 store's [capacity] f32 scale buffer, padded with 1.0, on
+    ``device`` (the card unless the caller names another)."""
     return torch.ones((capacity,), dtype=torch.float32, device=device)
 
 

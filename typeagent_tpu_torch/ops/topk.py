@@ -15,13 +15,18 @@ the exact routes:
     selection phase of the two-phase ("exact2") search; K2'
     ``bucket_argmax``, the same kernel with the argmax row of each bucket,
     carries the bucketed approximate search (``cosine_topk_bucket``);
+  * K8 ``bucket_maxima_q``: K2 over an int8 selection shadow with per-row
+    scales, phase 1 of the int8-selection hybrid
+    (``cosine_topk_exact2_hybrid_i8``); K9, the same over a packed int4
+    shadow, lives in :mod:`.int4` (``bucket_maxima_q4``);
   * K3 ``rescore_selected``: exact f32 scores of each query's selected
     buckets, the second phase, which ends in a per-query certificate.
 
 Each kernel has a plain PyTorch version of the same function beside it
 (``topk_plain``, ``topk_iv_plain``, ``topk_masked_plain``,
 ``topk_q_plain``, ``topk_mq_plain``, ``bucket_maxima_plain``,
-``bucket_argmax_plain``, ``rescore_selected_plain``). A wrapper runs the
+``bucket_argmax_plain``, ``bucket_maxima_q_plain``,
+``rescore_selected_plain``). A wrapper runs the
 plain version for a tensor on the CPU and launches its kernel for a CUDA
 tensor; there is no other fallback. Each wrapper counts its launches, so
 a run can show that the serving path went through it.
@@ -42,6 +47,8 @@ __all__ = [
     "cosine_topk",
     "cosine_topk_exact2",
     "cosine_topk_exact2_hybrid",
+    "cosine_topk_exact2_hybrid_i8",
+    "topk_program_exact2_hybrid_i8",
     "cosine_topk_approx",
     "cosine_topk_bucket",
     "approx_uses_buckets",
@@ -51,10 +58,12 @@ __all__ = [
     "fused_topk",
     "bucket_maxima",
     "bucket_argmax",
+    "bucket_maxima_q",
     "rescore_selected",
     "topk_plain",
     "bucket_maxima_plain",
     "bucket_argmax_plain",
+    "bucket_maxima_q_plain",
     "rescore_selected_plain",
     "intervals_to_rowmask",
     "topk_program_masked",
@@ -93,6 +102,11 @@ _CERT_EPS = 1e-5
 # differ from f32 by about 2^-8 for normalized rows.
 _CERT_EPS_HYBRID = 5e-3
 _HYBRID_SLACK = 14
+# int8-selection certificate slack: the int8 shadow's cosines differ from
+# f32 by up to ~1e-2 (7-bit codes, per-row scale), so selection takes more
+# slack and the certificate bounds a miss to an eps-score tie.
+_CERT_EPS_HYBRID_I8 = 2e-2
+_HYBRID_I8_SLACK = 14
 _EXACT2_SLACK = 6
 # Rows per chunk of the plain bucket maxima (bounds its score temporary).
 _PLAIN_CHUNK = 1 << 16
@@ -129,12 +143,17 @@ TOPK_Q_LAUNCHES = LaunchCounter("topk_q")
 TOPK_MQ_LAUNCHES = LaunchCounter("topk_mq")
 BUCKET_MAXIMA_LAUNCHES = LaunchCounter("bucket_maxima")
 BUCKET_ARGMAX_LAUNCHES = LaunchCounter("bucket_argmax")
+BUCKET_MAXIMA_Q_LAUNCHES = LaunchCounter("bucket_maxima_q")
+# K9's count (its wrapper is ``int4.bucket_maxima_q4``), here so that
+# ``launch_counts`` reads every kernel.
+BUCKET_MAXIMA_Q4_LAUNCHES = LaunchCounter("bucket_maxima_q4")
 RESCORE_LAUNCHES = LaunchCounter("rescore")
 # Calls of the k > 32 route, which materializes scores (no kernel).
 MATERIALIZED_CALLS = LaunchCounter("materialized_topk")
 COUNTERS = (
     TOPK_LAUNCHES, TOPK_IV_LAUNCHES, TOPK_MASK_LAUNCHES, TOPK_Q_LAUNCHES,
-    TOPK_MQ_LAUNCHES, BUCKET_MAXIMA_LAUNCHES, BUCKET_ARGMAX_LAUNCHES, RESCORE_LAUNCHES,
+    TOPK_MQ_LAUNCHES, BUCKET_MAXIMA_LAUNCHES, BUCKET_ARGMAX_LAUNCHES,
+    BUCKET_MAXIMA_Q_LAUNCHES, BUCKET_MAXIMA_Q4_LAUNCHES, RESCORE_LAUNCHES,
     MATERIALIZED_CALLS,
 )
 
@@ -508,21 +527,28 @@ def fused_topk_mq(
 # ---------------------------------------------------------------------------
 
 
+def _bucket_maxima_chunked(raw_of, n_rows: int, b: int, device) -> torch.Tensor:
+    """``[b, n_rows/128]`` f32 bucket maxima of the masked raw scores that
+    ``raw_of(start, stop)`` gives for rows ``[start, stop)``, a chunk at a
+    time (the plain versions of K2, K8 and K9)."""
+    out = torch.empty((b, n_rows // _BUCKET_ROWS), dtype=torch.float32, device=device)
+    for start in range(0, n_rows, _PLAIN_CHUNK):
+        stop = min(start + _PLAIN_CHUNK, n_rows)
+        out[:, start // _BUCKET_ROWS : stop // _BUCKET_ROWS] = raw_of(start, stop).view(
+            b, -1, _BUCKET_ROWS
+        ).amax(dim=2)
+    return out
+
+
 def bucket_maxima_plain(
     emb: torch.Tensor, queries: torch.Tensor, count: int
 ) -> torch.Tensor:
     """Plain version of K2: ``[b, n_rows/128]`` f32 maximum raw cosine per
     128-row bucket, -3.0 where every row is at or past ``count``."""
-    n_rows = emb.shape[0]
-    b = queries.shape[0]
-    out = torch.empty((b, n_rows // _BUCKET_ROWS), dtype=torch.float32, device=emb.device)
-    for start in range(0, n_rows, _PLAIN_CHUNK):
-        stop = min(start + _PLAIN_CHUNK, n_rows)
-        raw = _raw_scores(emb, queries, count, start, stop)
-        out[:, start // _BUCKET_ROWS : stop // _BUCKET_ROWS] = raw.view(
-            b, -1, _BUCKET_ROWS
-        ).amax(dim=2)
-    return out
+    return _bucket_maxima_chunked(
+        lambda start, stop: _raw_scores(emb, queries, count, start, stop),
+        emb.shape[0], queries.shape[0], emb.device,
+    )
 
 
 def bucket_argmax_plain(
@@ -599,6 +625,65 @@ def bucket_argmax(
         return bucket_argmax_plain(emb, queries, count)
     out = _launch_bucket_maxima(emb, queries, count, with_idx=True)
     BUCKET_ARGMAX_LAUNCHES.add()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8 (and K9's launch): bucket maxima over a scaled int8 or int4 shadow
+# ---------------------------------------------------------------------------
+
+
+def bucket_maxima_q_plain(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor, count: int
+) -> torch.Tensor:
+    """Plain version of K8: :func:`bucket_maxima_plain` over an int8 store
+    with per-row ``scales``, each row scored as :func:`_raw_scores_q` does
+    (bf16-rounded queries against the exactly upcast codes, times the
+    row's scale, then the watermark mask)."""
+    return _bucket_maxima_chunked(
+        lambda start, stop: _raw_scores_q(emb_q, scales, queries, count, start, stop),
+        emb_q.shape[0], queries.shape[0], emb_q.device,
+    )
+
+
+def _launch_bucket_maxima_q(
+    kind: int, emb: torch.Tensor, scales: torch.Tensor, q_bf16: torch.Tensor, count: int
+) -> torch.Tensor:
+    """Launch ``tat_bucket_maxima_q`` of ``csrc/bucket_maxima.cu``: K8
+    (``kind`` 0, int8 codes, ``q_bf16`` [b, width]) or K9 (``kind`` 1,
+    packed int4 bytes, ``q_bf16`` the split halves [b, 2*width]). The
+    caller has checked device, dtype and shapes; this checks the strip
+    layout the kernel stages with 16-byte loads."""
+    n_rows, width = emb.shape
+    strip = 64 if kind == 0 else 32
+    if width % strip or emb.data_ptr() % 16 or q_bf16.data_ptr() % 16:
+        raise ValueError(
+            f"bucket maxima over a {'packed int4' if kind else 'int8'} shadow needs "
+            f"width % {strip} == 0 and 16-byte aligned operands, got width {width}"
+        )
+    b = q_bf16.shape[0]
+    out = torch.empty((b, n_rows // _BUCKET_ROWS), dtype=torch.float32, device=emb.device)
+    _build.check(
+        _build.kernels().tat_bucket_maxima_q(
+            emb.data_ptr(), kind, scales.data_ptr(), q_bf16.data_ptr(), n_rows, width,
+            b, max(0, min(int(count), n_rows)), out.data_ptr(), _stream(emb),
+        ),
+        "int4 bucket maxima" if kind else "int8 bucket maxima",
+    )
+    return out
+
+
+def bucket_maxima_q(
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor, count: int
+) -> torch.Tensor:
+    """K8 (``csrc/bucket_maxima.cu``, the int8 instance of K2's tensor-core
+    template), as :func:`bucket_maxima_q_plain`; queries are f32 and are
+    cast to bf16 once here, as the JAX kernel's caller casts them."""
+    if emb_q.device.type == "cpu":
+        return bucket_maxima_q_plain(emb_q, scales, queries, count)
+    _check_int8_operands(emb_q, scales, queries)
+    out = _launch_bucket_maxima_q(0, emb_q, scales, queries.to(torch.bfloat16), count)
+    BUCKET_MAXIMA_Q_LAUNCHES.add()
     return out
 
 
@@ -890,6 +975,29 @@ def cosine_topk_exact2_hybrid(
     return _exact2_phase2_rescore(
         emb, queries, count, bvals, k=k, B=B, eps=_CERT_EPS_HYBRID
     )
+
+
+def topk_program_exact2_hybrid_i8(
+    emb: torch.Tensor, shadow_q: torch.Tensor, shadow_scales: torch.Tensor,
+    queries: torch.Tensor, count: int, k: int, slack: int = _HYBRID_I8_SLACK,
+):
+    """int8-selection hybrid exact top-k: bucket selection over the int8
+    ``shadow_q`` with per-row ``shadow_scales`` (K8, a quarter of the f32
+    scan's bytes), exact f32 rescore of the selected buckets from ``emb``
+    (K3), and a certificate at the int8 slack. Returns ``(vals, idx,
+    cert)``. No store calls it, as in the JAX package; K8 runs at every
+    store size on the card (the JAX package's 64k-row gate works around a
+    Mosaic fault) and its plain version on the CPU."""
+    k = min(k, emb.shape[0])
+    B = min(k + slack, emb.shape[0] // _BUCKET_ROWS)
+    bvals = bucket_maxima_q(shadow_q, shadow_scales, queries, count)
+    return _exact2_phase2_rescore(
+        emb, queries, count, bvals, k=k, B=B, eps=_CERT_EPS_HYBRID_I8
+    )
+
+
+# The JAX package's batched name for the same search (it jits the program).
+cosine_topk_exact2_hybrid_i8 = topk_program_exact2_hybrid_i8
 
 
 # Row count from which the approx route rides the bucket argmax (the
