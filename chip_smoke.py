@@ -23,8 +23,10 @@ Phases, one JSON line each:
      (64 concurrent requests), one batch-256 sync lookup and one keyed
      lookup; every answer is held against the plain f32 top-k on the card,
      no certificate may miss, and the launch counts show which kernels the
-     run went through;
-  3. the one-phase route: a 100k-row store and a 1M-row exact1 store;
+     run went through; then a batch-8 lookup (K2 at the small batch);
+  3. the one-phase route: a 100k-row store and a 1M-row exact1 store, each
+     at b = 256 and b = 8 (K1 at phase 3's shapes: the kernels line's
+     topk_100k, topk_100k_b8 and topk_b8 entries);
   4. a 1M-row bf16 store (plain exact2: K2 over the store, K3 on bf16 rows);
   5. a 1M-row int8 store (K6), served b=256 k=10 through LookupBatcher;
      its answers against its plain route, recall@10 against the f32 ones;
@@ -71,7 +73,8 @@ output on the same operands, that output agrees with the plain version
 lies in its scope; a probe row from each conversation finds itself.
 
 The line before the last holds every kernel's launches, error and time
-beside its plain version's, its bound on this card (the larger of the
+beside its plain version's (K1 also at 100k rows and at b = 8, K2 at b =
+8, as entries of their own), its bound on this card (the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak of
 their type: 67 TFLOP/s f32, 989 bf16; rows a scope excludes are not
 counted), the share of that bound it reaches, and the time of
@@ -115,6 +118,12 @@ CORPUS_CHUNK = 500_000  # rows made on the card per append_device
 CORPUS_B = 64
 KERNELS = ("topk", "bucket_maxima", "bucket_argmax", "rescore", "topk_iv", "topk_mask", "topk_q",
            "topk_mq", "bucket_maxima_q", "bucket_maxima_q4")
+# Further entries of the kernels line: a kernel at another of its paths'
+# shapes (K1 at phase 3's 100k-row store, K1 and K2 at b = 8, the store's
+# smallest padded batch), each with the kernel counter its launches read.
+SHAPE_ENTRIES = {"topk_100k": "topk", "topk_100k_b8": "topk", "topk_b8": "topk",
+                 "bucket_maxima_b8": "bucket_maxima"}
+ENTRIES = KERNELS + tuple(SHAPE_ENTRIES)
 # bench.py section B's clustered corpus: (rows, topics) per scale.
 SIGMA_C, BG_C = 0.35, 0.02
 IVF_SCALES = ((1_000_000, 1_000), (10_000_000, 10_000))
@@ -178,13 +187,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    kernel_err = dict.fromkeys(KERNELS, 0.0)
+    kernel_err = dict.fromkeys(ENTRIES, 0.0)
     kernel_ms: dict[str, tuple[float, float]] = {}
     kernel_bound: dict[str, tuple[float, str]] = {}  # (bound ms, "bytes" | "operations")
     kernel_product_ms: dict[str, float] = {}
     # Launches of each main path, each counted from a reset just before the
-    # path to a read just after it (comparison launches come later).
-    path_launches = dict.fromkeys(KERNELS, 0)
+    # path to a read just after it (comparison launches come later); a
+    # shape entry counts the launches of the one path run at its shape.
+    path_launches = dict.fromkeys(ENTRIES, 0)
 
     def add_path_launches(counts):
         for name in KERNELS:
@@ -712,16 +722,36 @@ def main() -> int:
            scan_bound(count, d_pad, 4, 256, 256 * K_MAIN * 8, PEAK_F32),
            cuda_ms(lambda: torch.matmul(qd, buf[: live_rows(count)].T), iters=3))
 
-    def batch_lookup(s):
-        return lambda: s.fuzzy_lookup_embeddings_batch(big, max_hits=K_MAIN)
+    def batch_lookup(s, queries=big):
+        return lambda: s.fuzzy_lookup_embeddings_batch(queries, max_hits=K_MAIN)
 
-    def plain_lookup(s):
+    def plain_lookup(s, queries=big):
         def run():
             with plain_kernels():
-                s.fuzzy_lookup_embeddings_batch(big, max_hits=K_MAIN)
+                s.fuzzy_lookup_embeddings_batch(queries, max_hits=K_MAIN)
         return run
 
     path_ms, path_plain_ms = in_turns(host_ms, batch_lookup(store), plain_lookup(store))
+
+    # b = 8 through the same store (the smallest padded batch of the serving
+    # front): the hybrid route's K2 at the small-batch tile geometry.
+    q8_host = big[:8]
+    topk.reset_launch_counts()
+    rows8 = store.fuzzy_lookup_embeddings_batch(q8_host, max_hits=K_MAIN)
+    counts8 = topk.launch_counts()
+    require(counts8["bucket_maxima"] > 0 and counts8["rescore"] > 0, f"batch-8: route {counts8}")
+    path_launches["bucket_maxima_b8"] = counts8["bucket_maxima"]
+    recall_8, _ = check_results(rows8, q8_host, buf, count, K_MAIN, TOL_F32, "batch-8")
+    q8 = qd[:8]
+    err = (topk.bucket_maxima(shadow, q8, count) - topk.bucket_maxima_plain(shadow, q8, count)).abs().max().item()
+    require(err <= TOL_BF16, f"K2 b=8: error {err} > {TOL_BF16}")
+    kernel_err["bucket_maxima_b8"] = err
+    record("bucket_maxima_b8",
+           in_turns(cuda_ms, lambda: topk.bucket_maxima(shadow, q8, count),
+                    lambda: topk.bucket_maxima_plain(shadow, q8, count)),
+           scan_bound(count, d_pad, 2, 8, 8 * nb * 4, PEAK_BF16),
+           cuda_ms(lambda: torch.matmul(qd_bf16[:8], shadow[: live_rows(count)].T), iters=3))
+    path8_ms, path8_plain_ms = in_turns(host_ms, batch_lookup(store, q8_host), plain_lookup(store, q8_host))
     emit({
         "phase": 2, "rows": count, "d": D_MAIN, "dtype": "float32", "route": "exact2h",
         "ingest_s": round(ingest_s, 3), "launches": launches,
@@ -732,6 +762,8 @@ def main() -> int:
         "recall_served": recall_s, "recall_batch256": recall_b,
         "max_score_err": max(err_s, err_b), "materialized_calls": launches["materialized_topk"],
         "ms_per_batch256": path_ms, "plain_ms_per_batch256": path_plain_ms,
+        "recall_batch8": recall_8, "launches_batch8": counts8,
+        "ms_per_batch8": path8_ms, "plain_ms_per_batch8": path8_plain_ms,
         "k3_distinct_buckets": distinct,
         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3), "ok": True,
     })
@@ -739,17 +771,38 @@ def main() -> int:
     # ------------------------------------------------- 3. the one-phase route
     out = {"phase": 3}
     rows_dev = buf[:N_MAIN, :D_MAIN]
+    # K1's shape entries: (store rows, batch) -> entry; K1 at 1M x b=256 is
+    # phase 2's entry.
+    k1_entries = {(100_000, 256): "topk_100k", (100_000, 8): "topk_100k_b8", (N_MAIN, 8): "topk_b8"}
     for label, n, mode in (("100k_exact", 100_000, "exact"), ("1m_exact1", N_MAIN, "exact1")):
         s = VectorStore(store_settings(mode=mode))
         s.load_device_rows(rows_dev[:n])
-        topk.reset_launch_counts()
-        res = s.fuzzy_lookup_embeddings_batch(big, max_hits=K_MAIN)
-        counts = topk.launch_counts()
-        require(counts["topk"] > 0 and counts["bucket_maxima"] == 0, f"{label}: route {counts}")
-        recall, err = check_results(res, big, s._buf, s._count, K_MAIN, TOL_F32, label)
-        ms, plain = in_turns(host_ms, batch_lookup(s), plain_lookup(s))
-        out[label] = {"rows": s._count, "launches": counts, "recall": recall,
-                      "max_score_err": err, "ms_per_batch256": ms, "plain_ms_per_batch256": plain}
+        out[label] = {"rows": s._count}
+        for b in (256, 8):
+            queries = big[:b]
+            topk.reset_launch_counts()
+            res = s.fuzzy_lookup_embeddings_batch(queries, max_hits=K_MAIN)
+            counts = topk.launch_counts()
+            require(counts["topk"] > 0 and counts["bucket_maxima"] == 0, f"{label} b={b}: route {counts}")
+            recall, err = check_results(res, queries, s._buf, s._count, K_MAIN, TOL_F32, f"{label} b={b}")
+            ms, plain = in_turns(host_ms, batch_lookup(s, queries), plain_lookup(s, queries))
+            out[label][f"b{b}"] = {"launches": counts, "recall": recall, "max_score_err": err,
+                                   "ms_per_batch": ms, "plain_ms_per_batch": plain}
+            entry = k1_entries.get((n, b))
+            if entry is None:
+                continue
+            path_launches[entry] = counts["topk"]
+            q = torch.zeros((b, s._buf.shape[1]), device=dev)
+            q[:, :D_MAIN] = to_dev(queries)
+            got_v, got_i = topk.fused_topk(s._buf, q, s._count, K_MAIN)
+            ref_v, _ = topk.topk_plain(s._buf, q, s._count, K_MAIN)
+            kernel_err[entry] = check_raw_topk(s._buf, q, s._count, K_MAIN, got_v, got_i, ref_v, TOL_F32,
+                                               f"K1 {label} b={b}")
+            record(entry,
+                   in_turns(cuda_ms, lambda: topk.fused_topk(s._buf, q, s._count, K_MAIN),
+                            lambda: topk.topk_plain(s._buf, q, s._count, K_MAIN)),
+                   scan_bound(s._count, s._buf.shape[1], 4, b, b * K_MAIN * 8, PEAK_F32),
+                   cuda_ms(lambda: torch.matmul(q, s._buf[: live_rows(s._count)].T), iters=3))
         del s
     out["ok"] = True
     emit(out)
@@ -1378,7 +1431,7 @@ def main() -> int:
     del rows, shadow_bf16, packed, runs, buffers
 
     # --------------------------------------------------------------- summary
-    for name in KERNELS:
+    for name in ENTRIES:
         require(path_launches[name] > 0, f"no main path launched the {name} kernel")
     sources = {
         "topk": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:116"),
@@ -1392,6 +1445,8 @@ def main() -> int:
         "bucket_maxima_q": ("csrc/bucket_maxima.cu", "typeagent_tpu/ops/topk.py:1233"),
         "bucket_maxima_q4": ("csrc/bucket_maxima.cu", "typeagent_tpu/ops/int4.py:215"),
     }
+    for entry, kernel in SHAPE_ENTRIES.items():
+        sources[entry] = sources[kernel]
     print(smi_line(), flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"typeagent_tpu_torch/{src}", "replaces": rep,

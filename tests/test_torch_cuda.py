@@ -64,6 +64,116 @@ def test_fused_topk_matches_plain(dev, dtype, b, k):
     assert bool((gi < count).all()) and bool((gi >= 0).all())
 
 
+def _check_topk(emb, q, count, k, got, ref, tol):
+    """K1 against its plain version: values within tol, as many filled
+    slots, distinct live picks each scoring what the kernel reported, and
+    no pick below the plain k-th value beyond tol."""
+    (gv, gi), (pv, pi) = got, ref
+    assert (gv - pv).abs().max().item() <= tol
+    filled = gi >= 0
+    assert bool((filled.sum(1) == (pi >= 0).sum(1)).all())
+    assert bool((gi < count).all())
+    assert bool((gv[~filled] == -3.0).all())
+    raw = topk._raw_scores(emb, q, count).gather(1, gi.clamp(min=0).long())
+    assert bool(((raw - gv).abs() <= tol)[filled].all())
+    kth = torch.where(pi >= 0, pv, 3.0).min(dim=1, keepdim=True).values
+    assert bool((gv >= kth - tol)[filled].all())
+    for row in gi.cpu().numpy():
+        live = row[row >= 0]
+        assert len(set(live.tolist())) == live.size
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("b", [1, 7, 16, 30, 63, 64, 65, 257])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_fused_topk_query_blocks(dev, dtype, d, b, k):
+    """Every query block (8, 16, 32, 64) and a partial last one, with a count
+    that ends inside a tile; rows past it hold data."""
+    rng = np.random.default_rng(20)
+    n_pad, count = 1 << 14, (1 << 14) - 1000 - 45
+    emb = _store(rng, n_pad, n_pad, d, dtype, dev)
+    q = _queries(rng, b, d, dev)
+    topk.reset_launch_counts()
+    got = topk.fused_topk(emb, q, count, k)
+    ref = topk.topk_plain(emb, q, count, k)
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["topk"] == 1
+    _check_topk(emb, q, count, k, got, ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("b", [1, 64, 257])
+def test_fused_topk_dead_store(dev, b):
+    emb = _store(np.random.default_rng(21), 1024, 1024, 128, torch.float32, dev)
+    q = _queries(np.random.default_rng(22), b, 128, dev)
+    vals, idx = topk.fused_topk(emb, q, 0, 10)
+    assert bool((vals == -3.0).all()) and bool((idx == -1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 64, 256])
+def test_fused_topk_ties_across_tile_and_split_edges(dev, dtype, b):
+    """Exact duplicates on both sides of a tile edge and of this card's split
+    edge keep ascending rows; a row equal to them over the first depth chunk
+    only (32 columns) ranks below them."""
+    rng = np.random.default_rng(23)
+    n_pad, count, d = 1 << 16, (1 << 16) - 77, 384
+    emb = _store(rng, n_pad, count, d, dtype, dev)
+    rows_per_split, _ = topk.scan_geometry(
+        count, n_pad, b, topk._sm_count(0), topk.topk_query_block(b))
+    edge = rows_per_split  # first row of split 1
+    dupes = [127, 128, edge - 1, edge, edge + 127, count - 1]
+    emb[dupes] = emb[dupes[0]].clone()
+    near = 5000  # the duplicate's first chunk, then another unit row
+    emb[near, :32] = emb[dupes[0], :32]
+    q = _queries(rng, b, d, dev)
+    q[0] = emb[dupes[0]].float()
+    vals, idx = topk.fused_topk(emb, q, count, 8)
+    assert idx[0, : len(dupes)].tolist() == dupes
+    assert near not in idx[0, : len(dupes)].tolist()
+    _check_topk(emb, q, count, 8, (vals, idx), topk.topk_plain(emb, q, count, 8), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 384, 1536])
+@pytest.mark.parametrize("b", [1, 64, 65, 256])
+@pytest.mark.parametrize("n_pad,count", [(1 << 16, 40_000), (384, 300)])
+def test_bucket_kernels_persistent_ranges(dev, dtype, d, b, n_pad, count):
+    """K2 and K2' over persistent bucket ranges: a watermark inside a bucket
+    at the end of the live ranges (313 live buckets of 512, the dead ones
+    strided over the CTAs) and a store of three buckets, fewer than the
+    CTAs of a wave; d = 1536 bf16 streams its query strips."""
+    rng = np.random.default_rng(24)
+    emb = _store(rng, n_pad, n_pad, d, dtype, dev)
+    q = _queries(rng, b, d, dev)
+    topk.reset_launch_counts()
+    maxima = topk.bucket_maxima(emb, q, count)
+    gv, gi = topk.bucket_argmax(emb, q, count)
+    torch.cuda.synchronize()
+    counts = topk.launch_counts()
+    assert counts["bucket_maxima"] == 1 and counts["bucket_argmax"] == 1
+    tol = TOL[dtype]
+    assert (maxima - topk.bucket_maxima_plain(emb, q, count)).abs().max().item() <= tol
+    assert torch.equal(maxima, gv)
+    pv, pi = topk.bucket_argmax_plain(emb, q, count)
+    dead = torch.arange(n_pad // 128, device=dev) * 128 >= count
+    assert bool((gv[:, dead] == -3.0).all()) and bool((gi[:, dead] == -1).all())
+    raw = topk._raw_scores(emb, q, count).view(b, -1, 128)
+    assert bool(_near_tie(raw, tol)[gi != pi].all())
+    picked = raw.reshape(b, -1).gather(1, gi.clamp(min=0).long())
+    assert bool(((picked - gv).abs() <= tol)[~dead.expand_as(gi)].all())
+
+
+def test_wrapper_rejects_misaligned_operands(dev):
+    """The kernels stage 16-byte pieces with cp.async and vector loads."""
+    emb = torch.zeros((1024, 128), device=dev)
+    q = torch.zeros((4 * 128 + 1,), device=dev)[1:].view(4, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        topk.fused_topk(emb, q, 10, 5)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        topk.bucket_maxima(emb, q, 10)
+
+
 def test_fused_topk_ties_to_lowest_row(dev):
     rng = np.random.default_rng(2)
     emb = _store(rng, 8192, 8000, 128, torch.float32, dev)

@@ -1,0 +1,204 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's kernels and batch lookups of two trees in turns.
+
+    python3 tools/torch_kernel_ab.py --base DIR [--change DIR] [--out FILE]
+                                     [--profile CASE ...]
+
+Each tree is a checkout holding ``typeagent_tpu_torch/`` (for example the
+parent commit unpacked with ``git archive`` into a gitignored directory).
+The script runs one child process per tree in the order base, change,
+change, base; each child imports the port from its tree, builds its
+kernels, makes the same inputs on the card from one seed, and times every
+case with CUDA events (kernels) or the host clock around a synchronised
+batch lookup (lookups). It prints one JSON line per child and a last line
+with, per case, the mean of each tree's two runs, their spread and the
+ratio change / base. With --profile, each child also runs the named cases
+five times under torch.profiler and reports, per call, the device time by
+kernel and in all, beside the wall time (the device's busy share). Needs
+one CUDA card; there is no CPU mode.
+
+Cases (1M x 384 unit rows unless named, k = 10): K1 f32 at b = 256, 16 and
+8, and at 100k rows at b = 256 and 8; K2 over the bf16 shadow at b = 256
+and 8; K2' f32 and bf16 at b = 256; K3 (unchanged, a control); K4 (8
+intervals), K5 (a row mask), K6 and K7 over int8 rows at b = 64; K8 and
+K9 at b = 256; the IVF program over the rows in bf16 (B = 16, a 3%
+outlier tail), its tail and the tail's K2; the batch-256 lookup of a 1M
+f32 store (hybrid exact2: K2 + K3) and of a 100k store (K1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+SEED = 20261016
+N, D, K = 1_000_000, 384, 10
+
+
+def profile(fn, iters: int = 5) -> dict:
+    """Device time per call by kernel name (the ten largest), all device
+    time per call, and wall time per call, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000 / iters
+    by_kernel = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            by_kernel[evt.key[:80]] = us / 1000 / iters
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10])
+    device_ms = sum(by_kernel.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms, "by_kernel_ms": top}
+
+
+def child(root: str, profiled: list[str]) -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: no CUDA device")
+    sys.path.insert(0, os.path.abspath(root))
+    from typeagent_tpu_torch.models.adapters import create_test_embedding_model
+    from typeagent_tpu_torch.ops import _build, int4, ivf, topk
+    from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings, VectorStore
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.kernels()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+
+    def unit(n, d=D):
+        return torch.nn.functional.normalize(torch.randn((n, d), generator=gen, device=dev), dim=1)
+
+    n_pad = (N + 1023) // 1024 * 1024
+    rows = torch.zeros((n_pad, D), device=dev)
+    rows[:N] = unit(N)
+    shadow = rows.to(torch.bfloat16)
+    q256 = unit(256)
+    emb_q, scales = topk.quantize_rows_device(rows)
+    packed, sc4 = int4.quantize_rows_int4_device(rows)
+    q_split = int4.split_pad_queries(q256, D)
+    ids = torch.topk(topk.bucket_maxima(shadow, q256, N), K + 14, dim=1).indices.to(torch.int32).contiguous()
+    iv = torch.tensor([[i * 125_000, i * 125_000 + 62_500] for i in range(8)], dtype=torch.int32, device=dev)
+    mask = topk.intervals_to_rowmask(n_pad, iv)[0].contiguous()
+    q64 = q256[:64].contiguous()
+
+    def cuda_ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def host_ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1000 / iters
+
+    def store(n, **settings):
+        s = VectorStore(TextEmbeddingIndexSettings(
+            embedding_model=create_test_embedding_model(D), min_score=0.0, device="cuda", **settings))
+        s.load_device_rows(rows[:n])
+        return s
+
+    big, small = store(N), store(100_000)
+    # IVF over the same rows in bf16 (chip_smoke.py phase 9's build options):
+    # K3 on the selected buckets, K2 + K3 on the 3% outlier tail.
+    ivf_store = store(N, dtype="bfloat16", search_mode="ivf")
+    ivf_store.settings.ivf_outlier_frac = 0.03
+    ivf_store.build_ivf(rows_per_cluster=512)
+    state = ivf_store._ivf
+    q_host = q256.cpu().numpy()
+    cases = {
+        "K1 f32 1M b256": lambda: topk.fused_topk(rows, q256, N, K),
+        "K1 f32 1M b16": lambda: topk.fused_topk(rows, q256[:16], N, K),
+        "K1 f32 1M b8": lambda: topk.fused_topk(rows, q256[:8], N, K),
+        "K1 f32 100k b256": lambda: topk.fused_topk(rows, q256, 100_000, K),
+        "K1 f32 100k b8": lambda: topk.fused_topk(rows, q256[:8], 100_000, K),
+        "K2 bf16 1M b256": lambda: topk.bucket_maxima(shadow, q256, N),
+        "K2 bf16 1M b8": lambda: topk.bucket_maxima(shadow, q256[:8], N),
+        "K2' f32 1M b256": lambda: topk.bucket_argmax(rows, q256, N),
+        "K2' bf16 1M b256": lambda: topk.bucket_argmax(shadow, q256, N),
+        "K3 f32 1M b256 B24": lambda: topk.rescore_selected(rows, q256, ids),
+        "K4 f32 1M b64 8 intervals": lambda: topk.fused_topk_iv(rows, q64, N, iv, K),
+        "K5 f32 1M b64 mask": lambda: topk.fused_topk_masked(rows, q64, N, mask, K),
+        "K6 int8 1M b64": lambda: topk.fused_topk_q(emb_q, scales, q64, N, K),
+        "K7 int8 1M b64 mask": lambda: topk.fused_topk_mq(emb_q, scales, q64, N, mask, K),
+        "K8 int8 1M b256": lambda: topk.bucket_maxima_q(emb_q, scales, q256, N),
+        "K9 int4 1M b256": lambda: int4.bucket_maxima_q4(packed, sc4, q_split, N),
+        "IVF 1M bf16 B16 program b256": lambda: ivf.ivf_topk_program(*state, q256, K, B=16),
+        "IVF tail exact2 b256": lambda: topk.cosine_topk_exact2(state.out_emb, q256, state.count_out, K),
+        "IVF tail K2 b256": lambda: topk.bucket_maxima(state.out_emb, q256, state.count_out),
+    }
+    cases["lookup 1M f32 b256 (host)"] = lambda: big.fuzzy_lookup_embeddings_batch(q_host, max_hits=K)
+    cases["lookup 100k f32 b256 (host)"] = lambda: small.fuzzy_lookup_embeddings_batch(q_host, max_hits=K)
+    out = {name: (host_ms if name.endswith("(host)") else cuda_ms)(fn) for name, fn in cases.items()}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    return {"root": root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "ms": out,
+            "profiles": {name: profile(cases[name]) for name in profiled}}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--base", required=True, help="tree timed first and last")
+    ap.add_argument("--change", default=".", help="tree timed second and third")
+    ap.add_argument("--out", help="also write the child lines and the summary here")
+    ap.add_argument("--profile", nargs="*", default=[], metavar="CASE",
+                    help="cases to break down by kernel with torch.profiler")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(child(args.child, args.profile)), flush=True)
+        return 0
+    runs = []
+    for root in (args.base, args.change, args.change, args.base):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--base", args.base, "--child", root,
+                              "--profile", *args.profile], capture_output=True, text=True)
+        if res.returncode != 0:
+            sys.stderr.write(res.stderr)
+            raise SystemExit(f"torch_kernel_ab: the run of {root} failed ({res.returncode})")
+        line = res.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    summary = {}
+    for name in runs[0]["ms"]:
+        base = [runs[0]["ms"][name], runs[3]["ms"][name]]
+        change = [runs[1]["ms"][name], runs[2]["ms"][name]]
+        summary[name] = {"base_ms": sum(base) / 2, "change_ms": sum(change) / 2,
+                         "base_runs": base, "change_runs": change,
+                         "ratio": (sum(change) / 2) / (sum(base) / 2)}
+    last = {"base": args.base, "change": args.change, "nvidia_smi": runs[0]["nvidia_smi"], "cases": summary}
+    if args.out:
+        with open(args.out, "w") as f:
+            for run in runs:
+                f.write(json.dumps(run) + "\n")
+            f.write(json.dumps(last) + "\n")
+    print(json.dumps(last), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

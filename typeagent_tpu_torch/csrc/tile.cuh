@@ -1,15 +1,36 @@
-// Shared pieces of the cosine top-k kernels: the [QB queries x RB rows]
-// score tile that the top-k scans (topk.cu: K1, K4-K7) and K2
-// (bucket_maxima.cu) compute, and the warp-held sorted top-k list that the
-// scan and merge passes share.
+// Shared pieces of the cosine top-k kernels: the FFMA score tile that the
+// top-k scans (topk.cu: K1, K4-K7) and the f32 bucket kernels
+// (bucket_maxima.cu: K2 and K2' on f32 stores) run over a range of 128-row
+// tiles, the warp-held sorted top-k list that the scan and merge passes
+// share, and the cp.async helpers of every staged kernel.
 //
 // The tile is a plain FP32 FFMA product (no TF32, no tensor cores): the JAX
 // kernels score f32 stores at Precision.HIGHEST, and the products of a bf16
 // store (bf16 x bf16) or an int8 store (bf16 query x int8 row) are exact in
 // f32, so FFMA on upcast operands gives the same sums up to summation
-// order. Each thread owns a 4 x 4 block of the tile: queries
-// ty*4 .. ty*4+3 (ty = warp) against rows tx, tx+32, tx+64, tx+96
-// (tx = lane), so one warp holds all RB scores of its four queries.
+// order.
+//
+// What bounds it on an H100: the FP32 FFMA rate (67 TFLOP/s) at serving
+// batches, 2*b*n*d operations; the store read at b <= 8. The first design
+// held a 4 x 4 block per thread fed by 8 scalar shared loads per depth
+// step, so the shared-memory pipe, not the FP32 units, set the pace (~16
+// TFLOP/s), and it staged each chunk synchronously. This one:
+//   * a tile of QB = 8*TQ queries x 128 rows (TQ = 1, 2, 4 or 8: QB 8 to
+//     64, chosen by the batch, so the store's padded batches of 8, 16 and
+//     32 score no padding queries, and 64 streams the store 4 times at
+//     b = 256 instead of 8); each thread owns TQ queries x 4 rows, and one
+//     depth step of 4 costs 4 + TQ 16-byte shared loads for 16*TQ FFMAs;
+//   * rows and queries staged [row][depth] in 32-deep chunks through a
+//     two-slot ring: f32 operands ride 16-byte cp.async copies issued a
+//     chunk ahead, so the next chunk's loads overlap this chunk's FFMAs
+//     (and the next tile's first chunk overlaps this tile's epilogue);
+//     bf16 and int8 rows (and the queries they take, rounded to bf16) are
+//     loaded into registers a chunk ahead and converted exactly on the
+//     store, one barrier per chunk either way;
+//   * the [QB x 128] score block leaves the accumulators through shared
+//     memory, so that each warp then reads its TQ queries' 128 scores lane
+//     by lane in ascending row order (the top-k fold and the bucket
+//     reductions need rows across lanes, not the product's layout).
 
 #pragma once
 
@@ -17,90 +38,240 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tat {
 
-constexpr int QB = 32;        // queries per CTA
-constexpr int RB = 128;       // rows per tile (= one exact2 bucket)
-constexpr int KC = 32;        // depth of one shared-memory chunk
-constexpr int THREADS = 256;  // 8 warps
+constexpr int RB = 128;           // rows per tile (= one exact2 bucket)
+constexpr int THREADS = 256;      // 8 warps
 constexpr float RAW_NEG = -3.0f;  // below any real cosine
 constexpr unsigned FULL = 0xffffffffu;
+// Every staged kernel is __launch_bounds__(THREADS, 2) with at most this
+// much shared memory, so two CTAs fit on an SM (ops/topk.py
+// _CTAS_PER_SM sizes its grids by it).
+constexpr int SMEM_2CTA = 113 * 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 // Queries arrive as f32 and are cast to the store dtype first, as the JAX
-// kernels do (q.astype(emb.dtype)), then upcast for the f32 product. An
-// int8 store scores bf16 queries (the JAX int8 kernels take
+// kernels do (q.astype(emb.dtype)), then upcast for the f32 product: an
+// f32 store takes them as they are, a bf16 store rounds them to bf16, and
+// so does an int8 store (the JAX int8 kernels take
 // queries.astype(bfloat16)).
-template <typename T>
-__device__ __forceinline__ float query_in_store_dtype(float x);
-template <>
-__device__ __forceinline__ float query_in_store_dtype<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float query_in_store_dtype<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-template <>
-__device__ __forceinline__ float query_in_store_dtype<int8_t>(float x) {
+__device__ __forceinline__ float bf16_rounded(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-struct TileSmem {
-  float q[KC][QB + 1];  // [depth][query]; +1 keeps the transposing stores
-  float e[KC][RB + 1];  // [depth][row]    free of bank conflicts
+// ---------------------------------------------------------------------------
+// cp.async
+// ---------------------------------------------------------------------------
+
+// 16-byte asynchronous copy to shared memory; !valid fills zeros and reads
+// nothing (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The FFMA tile
+// ---------------------------------------------------------------------------
+
+constexpr int KC = 32;      // depth of one staged chunk
+constexpr int KP = KC + 4;  // f32 per staged row: 16-byte reads stay conflict-free
+constexpr int SP = RB + 8;  // f32 per score-block row: the scatter stays conflict-free
+
+// Thread (warp w, lane l) owns queries (w >> 2) * 4*TQ + (l >> 3) + 4*i,
+// i < TQ, and rows (w & 3) * 32 + (l & 7) + 8*j, j < 4: the strides keep the
+// 16-byte shared reads of one instruction on distinct banks.
+template <int TQ>
+struct FfmaTile {
+  static_assert(TQ == 1 || TQ == 2 || TQ == 4 || TQ == 8, "query blocks of 8 to 64");
+  static constexpr int QB = 8 * TQ;
+  static constexpr int SLOT = (QB + RB) * KP;  // floats: queries, then rows
+  static constexpr int SMEM_BYTES = (2 * SLOT + QB * SP) * (int)sizeof(float);
+  static_assert(SMEM_BYTES <= SMEM_2CTA, "two CTAs per SM");
 };
 
-// acc[i][j] = dot(query q0 + ty*4 + i, row r0 + tx + 32*j). Queries at or
-// past b and rows at or past n_rows read as zero; the caller masks rows at
-// the count watermark. Must be called by all THREADS threads of the CTA.
-template <typename T>
-__device__ __forceinline__ void score_tile(
-    const T* __restrict__ emb, const float* __restrict__ q, int64_t n_rows,
-    int d_pad, int b, int q0, int64_t r0, TileSmem& s, float acc[4][4]) {
-  const int tid = threadIdx.x;
-  const int tx = tid & 31;
-  const int ty = tid >> 5;
+// Stages chunk [d0, d0 + KC) of query block q0 and tile r0 into a slot:
+// queries at [qi * KP], rows at [(QB + ri) * KP]. Queries at or past b and
+// rows at or past n_rows read as zero. bf16 and int8 rows: fetch loads the
+// chunk into registers, put converts it (rows exactly, queries rounded to
+// bf16) into the slot.
+template <typename T, int TQ>
+struct ChunkStager {
+  static constexpr int QB = FfmaTile<TQ>::QB;
+  static constexpr int RVEC = 16 / sizeof(T);            // row elements per load
+  static constexpr int RLOADS = RB * KC / RVEC / THREADS;  // per thread
+  static constexpr int QLOADS = (QB * KC / 4 + THREADS - 1) / THREADS;
+  uint4 rows[RLOADS];
+  float4 qs[QLOADS];
+
+  __device__ __forceinline__ void fetch(const T* __restrict__ emb, const float* __restrict__ q,
+                                        int64_t n_rows, int d_pad, int b, int q0, int64_t r0,
+                                        int d0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int u = 0; u < RLOADS; ++u) {
+      const int c = threadIdx.x + u * THREADS;
+      const int ri = c / (KC / RVEC);
+      const int col = (c % (KC / RVEC)) * RVEC;
+      const int64_t gr = r0 + ri;
+      rows[u] = gr < n_rows ? *reinterpret_cast<const uint4*>(emb + gr * d_pad + d0 + col)
+                            : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < QLOADS; ++u) {
+      const int c = threadIdx.x + u * THREADS;
+      const int qi = c / (KC / 4);
+      const int gq = q0 + qi;
+      qs[u] = c < QB * (KC / 4) && gq < b
+                  ? *reinterpret_cast<const float4*>(q + (int64_t)gq * d_pad + d0 + (c % (KC / 4)) * 4)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  __device__ __forceinline__ void put(float* slot) const {
+#pragma unroll
+    for (int u = 0; u < RLOADS; ++u) {
+      const int c = threadIdx.x + u * THREADS;
+      float* dst = slot + (QB + c / (KC / RVEC)) * KP + (c % (KC / RVEC)) * RVEC;
+      const uint32_t w[4] = {rows[u].x, rows[u].y, rows[u].z, rows[u].w};
+      if constexpr (sizeof(T) == 2) {  // bf16: the upcast is exact
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float4*>(dst + 4 * h) = make_float4(
+              __uint_as_float(w[2 * h] << 16), __uint_as_float(w[2 * h] & 0xffff0000u),
+              __uint_as_float(w[2 * h + 1] << 16), __uint_as_float(w[2 * h + 1] & 0xffff0000u));
+      } else {  // int8: byte k of w[h] is column 4h + k
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          *reinterpret_cast<float4*>(dst + 4 * h) =
+              make_float4((float)(int8_t)(w[h] & 0xff), (float)(int8_t)((w[h] >> 8) & 0xff),
+                          (float)(int8_t)((w[h] >> 16) & 0xff), (float)(int8_t)(w[h] >> 24));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < QLOADS; ++u) {
+      const int c = threadIdx.x + u * THREADS;
+      if (c < QB * (KC / 4))
+        *reinterpret_cast<float4*>(slot + (c / (KC / 4)) * KP + (c % (KC / 4)) * 4) =
+            make_float4(bf16_rounded(qs[u].x), bf16_rounded(qs[u].y), bf16_rounded(qs[u].z),
+                        bf16_rounded(qs[u].w));
+    }
+  }
+};
+
+// f32 stores: the chunk rides cp.async straight into the slot.
+template <int TQ>
+struct ChunkStager<float, TQ> {
+  static constexpr int QB = FfmaTile<TQ>::QB;
+  float* slot;
+
+  __device__ __forceinline__ void fetch(const float* __restrict__ emb, const float* __restrict__ q,
+                                        int64_t n_rows, int d_pad, int b, int q0, int64_t r0,
+                                        int d0) {
+    for (int c = threadIdx.x; c < RB * (KC / 4); c += THREADS) {
+      const int ri = c / (KC / 4), col = (c % (KC / 4)) * 4;
+      const int64_t gr = r0 + ri;
+      cp_async16(slot + (QB + ri) * KP + col, gr < n_rows ? emb + gr * d_pad + d0 + col : emb,
+                 gr < n_rows);
+    }
+    for (int c = threadIdx.x; c < QB * (KC / 4); c += THREADS) {
+      const int qi = c / (KC / 4), col = (c % (KC / 4)) * 4;
+      const int gq = q0 + qi;
+      cp_async16(slot + qi * KP + col, gq < b ? q + (int64_t)gq * d_pad + d0 + col : q, gq < b);
+    }
+  }
+  __device__ __forceinline__ void put(float*) const {}
+};
+
+// Scores query block q0 against tiles [t_begin, t_end) of 128 rows. After
+// each tile the [QB x 128] block sits in shared memory at S[query * SP +
+// row] and every thread calls epi(r0, S); the block stays valid until the
+// next tile's epilogue. Must be called by all THREADS threads of the CTA
+// with FfmaTile<TQ>::SMEM_BYTES of dynamic shared memory at `smem`.
+template <typename T, int TQ, typename Epilogue>
+__device__ __forceinline__ void scan_tiles(const T* __restrict__ emb,
+                                           const float* __restrict__ q, int64_t n_rows,
+                                           int d_pad, int b, int q0, int64_t t_begin,
+                                           int64_t t_end, float* smem, Epilogue&& epi) {
+  using Tile = FfmaTile<TQ>;
+  float* const S = smem + 2 * Tile::SLOT;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qrow = (warp >> 2) * 4 * TQ + (lane >> 3);  // + 4*i
+  const int rrow = (warp & 3) * 32 + (lane & 7);        // + 8*j
+  const int chunks = d_pad / KC;
+  const int64_t steps = (t_end - t_begin) * chunks;
+  if (steps <= 0) return;
+
+  ChunkStager<T, TQ> st;
+  auto fetch = [&](int64_t s) {
+    if constexpr (std::is_same<T, float>::value) st.slot = smem + (s & 1) * Tile::SLOT;
+    st.fetch(emb, q, n_rows, d_pad, b, q0, (t_begin + s / chunks) * RB, (int)(s % chunks) * KC);
+  };
+  fetch(0);
+  st.put(smem);
+  cp_async_commit();
+
+  float acc[TQ][4];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  for (int d0 = 0; d0 < d_pad; d0 += KC) {
-    // A warp reads 32 consecutive depths of one query or row (coalesced)
-    // and stores them down a column of the transposed shared tile.
-    for (int t = tid; t < QB * KC; t += THREADS) {
-      const int qi = t / KC;
-      const int c = t % KC;
-      const int gq = q0 + qi;
-      const float v = gq < b ? q[(int64_t)gq * d_pad + d0 + c] : 0.0f;
-      s.q[c][qi] = query_in_store_dtype<T>(v);
+  for (int64_t s = 0; s < steps; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk s is in its slot; the other slot is free
+    const bool more = s + 1 < steps;
+    if (more) fetch(s + 1);
+    cp_async_commit();
+
+    const float* slot = smem + (s & 1) * Tile::SLOT;
+    const float* qs = slot + qrow * KP;
+    const float* es = slot + (Tile::QB + rrow) * KP;
+#pragma unroll
+    for (int c = 0; c < KC; c += 4) {
+      float4 e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e[j] = *reinterpret_cast<const float4*>(es + 8 * j * KP + c);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(qs + 4 * i * KP + c);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(a.x, e[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, e[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, e[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, e[j].w, acc[i][j]);
+        }
+      }
     }
-    for (int t = tid; t < RB * KC; t += THREADS) {
-      const int ri = t / KC;
-      const int c = t % KC;
-      const int64_t gr = r0 + ri;
-      s.e[c][ri] = gr < n_rows ? to_f32(emb[gr * d_pad + d0 + c]) : 0.0f;
+    if (more) st.put(smem + ((s + 1) & 1) * Tile::SLOT);
+
+    if (s % chunks == chunks - 1) {  // uniform: the tile is done
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          S[(qrow + 4 * i) * SP + rrow + 8 * j] = acc[i][j];
+          acc[i][j] = 0.0f;
+        }
+      __syncthreads();
+      epi((t_begin + s / chunks) * RB, (const float*)S);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < KC; ++c) {
-      float a[4], e[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = s.q[c][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) e[j] = s.e[c][tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], e[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 }
 

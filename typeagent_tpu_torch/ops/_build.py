@@ -122,9 +122,9 @@ def build_shared(
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     # Every top-k scan takes (emb, dtype code or scales, q, n_rows, d_pad,
-    # b, count, k, rows_per_split, splits, <filter operands>, cand_vals,
-    # cand_idx, stream).
-    geometry = [p, i64, i32, i32, i64, i32, i64, i32]
+    # b, count, k, rows_per_split, splits, query_block, <filter operands>,
+    # cand_vals, cand_idx, stream).
+    geometry = [p, i64, i32, i32, i64, i32, i64, i32, i32]
     tail = [p, p, p]
     signatures = {
         "tat_topk_scan": [p, i32, *geometry, *tail],
@@ -133,8 +133,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tat_topk_scan_q": [p, p, *geometry, *tail],
         "tat_topk_scan_mq": [p, p, *geometry, p, *tail],
         "tat_topk_merge": [p, p, i32, i32, i32, p, p, p],
-        "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, p, p, p],
-        "tat_bucket_maxima_q": [p, i32, p, p, i64, i32, i32, i64, p, p],
+        # (..., count, buckets_per_cta, ctas_per_qb[, query_block], out, ...)
+        "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, i64, i32, i32, p, p, p],
+        "tat_bucket_maxima_q": [p, i32, p, p, i64, i32, i32, i64, i64, i32, p, p],
         "tat_rescore": [p, i32, p, p, i64, i32, i32, i32, p, p],
     }
     for name, argtypes in signatures.items():

@@ -34,6 +34,7 @@ a run can show that the serving path went through it.
 
 from __future__ import annotations
 
+import functools
 import math
 import threading
 
@@ -114,9 +115,15 @@ _PLAIN_CHUNK = 1 << 16
 # temporary and, for int8 stores, the f32 copy of the chunk's rows (a 30M
 # x 384 int8 store upcast in one piece would need 46 GB).
 _PLAIN_TOPK_CHUNK = 1 << 20
-# Kernel tile shape (csrc/tile.cuh).
-_QB = 32
+# Kernel tile shape (csrc/tile.cuh): 128-row tiles (one bucket each) and
+# the tensor-core tile's 64-query block (csrc/bucket_maxima.cu); the FFMA
+# tile's query block follows the batch (topk_query_block).
 _RB = 128
+_MMA_QB = 64
+# Every scan and bucket kernel is __launch_bounds__(256, 2) with at most
+# 113 KB of shared memory (csrc/tile.cuh SMEM_2CTA): two CTAs share an SM,
+# so one wave of the grid is 2 x the SM count.
+_CTAS_PER_SM = 2
 
 
 class LaunchCounter:
@@ -204,6 +211,8 @@ def _check_geometry(emb: torch.Tensor, queries: torch.Tensor) -> None:
         raise ValueError(f"query width {queries.shape[1]} != store width {d_pad}")
     if d_pad % 32 or n_rows % _RB or n_rows >= 2**31:
         raise ValueError(f"unsupported store shape {tuple(emb.shape)}")
+    if emb.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError("the kernels stage 16-byte pieces: store and queries must be 16-byte aligned")
 
 
 def _check_cuda_operands(emb: torch.Tensor, queries: torch.Tensor) -> int:
@@ -258,6 +267,58 @@ def _check_intervals(intervals: torch.Tensor, emb: torch.Tensor) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry (pure functions of the shapes and the card's SM count)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a card, read once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def topk_query_block(b: int) -> int:
+    """Queries per CTA of the FFMA tile (csrc/tile.cuh), by the batch
+    alone: the power of two from 8 to 64 that holds it, so the store's
+    padded batches of 8, 16 and 32 score no padding queries (at such
+    batches the store read bounds a scan), and larger batches stream the
+    store once per 64 queries."""
+    return min(64, max(8, 1 << (max(b, 1) - 1).bit_length()))
+
+
+def split_range(n: int, n_qb: int, sms: int) -> tuple[int, int]:
+    """Cut ``n`` tiles (at least one) into contiguous ranges for one wave of
+    ``_CTAS_PER_SM * sms`` CTAs shared by ``n_qb`` query blocks. Returns
+    ``(per, ranges)``: range ``i`` is ``[i*per, min((i+1)*per, n))`` and
+    none is empty."""
+    n = max(1, n)
+    ranges = min(n, max(1, _CTAS_PER_SM * sms // n_qb))
+    per = math.ceil(n / ranges)
+    return per, math.ceil(n / per)
+
+
+def scan_geometry(count: int, n_rows: int, b: int, sms: int, query_block: int) -> tuple[int, int]:
+    """``(rows_per_split, splits)`` of a top-k scan (``csrc/topk.cu``) over
+    rows ``[0, count)`` of an ``n_rows`` store: split ``i`` scans rows
+    ``[i*rows_per_split, (i+1)*rows_per_split)`` below the count, in
+    128-row tiles, for each of the ``ceil(b / query_block)`` query blocks.
+    A dead store keeps one (empty) split, whose lists stay unfilled."""
+    count = max(0, min(int(count), n_rows))
+    per, splits = split_range(math.ceil(count / _RB), math.ceil(b / query_block), sms)
+    return per * _RB, splits
+
+
+def bucket_geometry(count: int, n_rows: int, b: int, sms: int, query_block: int) -> tuple[int, int]:
+    """``(buckets_per_cta, ctas_per_qb)`` of a bucket kernel
+    (``csrc/bucket_maxima.cu``): CTA ``c`` of each query block walks the
+    live buckets ``[c*buckets_per_cta, (c+1)*buckets_per_cta)`` below
+    ``ceil(count/128)``, and writes the dead buckets ``live + c, live + c +
+    ctas_per_qb, ...`` below ``n_rows/128``."""
+    count = max(0, min(int(count), n_rows))
+    return split_range(math.ceil(count / _RB), math.ceil(b / query_block), sms)
 
 
 # ---------------------------------------------------------------------------
@@ -341,20 +402,17 @@ def _launch_topk(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch one scan entry point of ``csrc/topk.cu`` and the merge:
     ``entry(emb, *head, q, n_rows, d_pad, b, count, k, rows_per_split,
-    splits, *tail, cand_vals, cand_idx, stream)``. Operands are checked by
-    the caller."""
+    splits, query_block, *tail, cand_vals, cand_idx, stream)``. Operands
+    are checked by the caller."""
     if not 1 <= k <= _PALLAS_MAX_K:
         raise ValueError(f"fused top-k takes 1 <= k <= {_PALLAS_MAX_K}, got {k}")
     n_rows, d_pad = emb.shape
     b = queries.shape[0]
     count = max(0, min(int(count), n_rows))
-    n_tiles = max(1, math.ceil(count / _RB))
-    n_qb = math.ceil(b / _QB)
-    # About four CTAs per SM: enough row splits to fill the card.
-    sms = torch.cuda.get_device_properties(emb.device).multi_processor_count
-    splits = min(n_tiles, max(1, math.ceil(4 * sms / n_qb)))
-    tiles_per_split = math.ceil(n_tiles / splits)
-    splits = math.ceil(n_tiles / tiles_per_split)
+    query_block = topk_query_block(b)
+    rows_per_split, splits = scan_geometry(
+        count, n_rows, b, _sm_count(emb.device.index), query_block
+    )
     dev = emb.device
     cand_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((b, splits, k), dtype=torch.int32, device=dev)
@@ -365,7 +423,7 @@ def _launch_topk(
     _build.check(
         getattr(lib, entry)(
             emb.data_ptr(), *head, queries.data_ptr(), n_rows, d_pad, b, count,
-            k, tiles_per_split * _RB, splits, *tail, cand_v.data_ptr(),
+            k, rows_per_split, splits, query_block, *tail, cand_v.data_ptr(),
             cand_i.data_ptr(), stream,
         ),
         f"{counter.name} scan",
@@ -587,17 +645,20 @@ def _launch_bucket_maxima(
     if code == 1:
         # The tensor-core path takes bf16 queries (cast once here, as the
         # JAX kernel casts queries to the store dtype) and stages rows and
-        # queries in 64-deep, 16-byte-aligned strips.
+        # queries in 64-deep strips.
         q_arg = queries.to(torch.bfloat16)
-        if d_pad % 64 or emb.data_ptr() % 16:
-            raise ValueError("bf16 bucket maxima needs d_pad % 64 == 0 and 16-byte alignment")
+        if d_pad % 64:
+            raise ValueError("bf16 bucket maxima needs d_pad % 64 == 0")
     nb = n_rows // _BUCKET_ROWS
     out = torch.empty((b, nb), dtype=torch.float32, device=emb.device)
     idx = torch.empty((b, nb), dtype=torch.int32, device=emb.device) if with_idx else None
+    count = max(0, min(int(count), n_rows))
+    query_block = _MMA_QB if code == 1 else topk_query_block(b)
+    per, ctas = bucket_geometry(count, n_rows, b, _sm_count(emb.device.index), query_block)
     _build.check(
         _build.kernels().tat_bucket_maxima(
-            emb.data_ptr(), code, q_arg.data_ptr(), n_rows, d_pad, b,
-            max(0, min(int(count), n_rows)), out.data_ptr(),
+            emb.data_ptr(), code, q_arg.data_ptr(), n_rows, d_pad, b, count,
+            per, ctas, query_block, out.data_ptr(),
             idx.data_ptr() if with_idx else None, _stream(emb),
         ),
         "bucket argmax" if with_idx else "bucket maxima",
@@ -663,10 +724,12 @@ def _launch_bucket_maxima_q(
         )
     b = q_bf16.shape[0]
     out = torch.empty((b, n_rows // _BUCKET_ROWS), dtype=torch.float32, device=emb.device)
+    count = max(0, min(int(count), n_rows))
+    per, ctas = bucket_geometry(count, n_rows, b, _sm_count(emb.device.index), _MMA_QB)
     _build.check(
         _build.kernels().tat_bucket_maxima_q(
             emb.data_ptr(), kind, scales.data_ptr(), q_bf16.data_ptr(), n_rows, width,
-            b, max(0, min(int(count), n_rows)), out.data_ptr(), _stream(emb),
+            b, count, per, ctas, out.data_ptr(), _stream(emb),
         ),
         "int4 bucket maxima" if kind else "int8 bucket maxima",
     )
