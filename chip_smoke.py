@@ -17,7 +17,13 @@ Phases, one JSON line each:
      one-bucket cluster and a store of one bucket, at 65,536 rows and
      (K4-K7) at 1M x 384 (later phases check each kernel again at their
      shapes; K8 and K9 at d = 128 and 384, and 100 for K9, b = 1, 8, 256,
-     a ragged watermark, a store of one bucket and a dead one);
+     a ragged watermark, a store of one bucket and a dead one); then K6
+     and K7 at 1M x 384 int8, b = 1, 8, 64, 256, k = 1, 10, 32, over scopes
+     that make K7 skip tiles: in-scope tiles with wholly out-of-scope tiles
+     between them, in-scope rows only in the last tile of one split and
+     the first of the next, duplicates on both sides of a skipped tile, an
+     empty scope and a scope whose only rows lie past the count (both
+     must give only (-3, -1));
   2. the main path at full width: a 1M x 384 f32 store ingested in 10
      chunks while it answers lookups, then served through LookupBatcher
      (64 concurrent requests), one batch-256 sync lookup and one keyed
@@ -30,13 +36,16 @@ Phases, one JSON line each:
   4. a 1M-row bf16 store (plain exact2: K2 over the store, K3 on bf16 rows);
   5. a 1M-row int8 store (K6), served b=256 k=10 through LookupBatcher;
      its answers against its plain route, recall@10 against the f32 ones;
+     K6 at this store at b = 256 and 8 (the kernels line's topk_q_1m_b256
+     and topk_q_1m_b8 entries, each counted from a lookup at its batch);
   6. the multi-conversation corpus, f32, at the repo's 10M-fragment probe
      layout: 9,984,000 x 384 rows made on the card in 24 interleaved
      segments over three conversations, b=64 k=10, searched globally (K1),
      scoped to one conversation (8 intervals, K4), to two (9 intervals
      after merging, row mask + K5) and to a 100k-row subset (K5);
   7. the int8 corpus at 30,000,000 x 384 in the same layout (the f32 one
-     freed first): global (K6), one and two conversations (row mask, K7);
+     freed first): global (K6), one and two conversations (row mask, K7),
+     with the tiles K7 read beside the live ones;
   8. search_mode="approx" at 1M x 384, f32 and bf16 stores, b=256 k=10,
      served through LookupBatcher and sync (the K2' bucket route), and a
      100k-row store (the K1 route); recall@10 against the plain exact
@@ -74,7 +83,7 @@ lies in its scope; a probe row from each conversation finds itself.
 
 The line before the last holds every kernel's launches, error and time
 beside its plain version's (K1 also at 100k rows and at b = 8, K2 at b =
-8, as entries of their own), its bound on this card (the larger of the
+8, K6 at 1M rows and b = 256 and 8, as entries of their own), its bound on this card (the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak of
 their type: 67 TFLOP/s f32, 989 bf16; rows a scope excludes are not
 counted), the share of that bound it reaches, and the time of
@@ -120,9 +129,11 @@ KERNELS = ("topk", "bucket_maxima", "bucket_argmax", "rescore", "topk_iv", "topk
            "topk_mq", "bucket_maxima_q", "bucket_maxima_q4")
 # Further entries of the kernels line: a kernel at another of its paths'
 # shapes (K1 at phase 3's 100k-row store, K1 and K2 at b = 8, the store's
-# smallest padded batch), each with the kernel counter its launches read.
+# smallest padded batch, K6 at phase 5's 1M-row int8 store at b = 256 and
+# 8), each with the kernel counter its launches read.
 SHAPE_ENTRIES = {"topk_100k": "topk", "topk_100k_b8": "topk", "topk_b8": "topk",
-                 "bucket_maxima_b8": "bucket_maxima"}
+                 "bucket_maxima_b8": "bucket_maxima", "topk_q_1m_b256": "topk_q",
+                 "topk_q_1m_b8": "topk_q"}
 ENTRIES = KERNELS + tuple(SHAPE_ENTRIES)
 # bench.py section B's clustered corpus: (rows, topics) per scale.
 SIGMA_C, BG_C = 0.35, 0.02
@@ -576,7 +587,53 @@ def main() -> int:
         },
         (64, 256), (10,), "1M",
     )
-    del m_dev
+
+    # K6 and K7 on the tensor-core loop at 1M x 384 int8. Every row of
+    # `dupes` is one row (query 0), so each scope's top-k of query 0 starts
+    # with its in-scope duplicates in ascending order: through skipped
+    # tiles, list shares and row splits (3839 | 3840 at b <= 64, 15231 |
+    # 15232 at b = 256).
+    t = 128
+    dupes = sorted([10 * t + 6, 41 * t + 127, 100 * t, 301 * t - 1, 301 * t + 5, 302 * t, 3839, 3840,
+                    15231, 15232, 5000 * t + 3, 999_999, 1_000_100])
+    m_dev[dupes] = m_dev[dupes[0]].clone()
+    emb, sc = quantized_store(m_dev, n_pad)  # rows past the count hold data
+    qs = torch.nn.functional.normalize(torch.randn((256, D_MAIN), generator=gen, device=dev), dim=1)
+    qs[0] = m_dev[dupes[0]]
+    for b in (1, 8, 64, 256):
+        edge, _ = topk.scan_geometry(count, n_pad, b, topk._sm_count(0), 64)
+        scopes = {
+            "global": None,
+            "gaps": [(10 * t + 5, 10 * t + 70), (40 * t, 42 * t), (5000 * t + 3, 5000 * t + 4), (7812 * t, n_pad)],
+            "split_edge": [(edge - 64, edge + 64)],
+            "skipped_dupes": [(300 * t, 301 * t), (302 * t, 303 * t)],
+            "empty": [],
+            "past_count": [(count, n_pad)],
+        }
+        q = qs[:b].contiguous()
+        for sname, spans in scopes.items():
+            mask = torch.zeros((n_pad,), dtype=torch.int32, device=dev)
+            for lo, hi in [(0, n_pad)] if spans is None else spans:
+                mask[lo:hi] = 1
+            want = [r for r in dupes if r < count and mask[r].item() > 0]
+            for k in (1, 10, 32):
+                name = "topk_q" if spans is None else "topk_mq"
+                if spans is None:
+                    got = topk.fused_topk_q(emb, sc, q, count, k)
+                    ref = topk.topk_q_plain(emb, sc, q, count, k)
+                else:
+                    got = topk.fused_topk_mq(emb, sc, q, count, mask, k)
+                    ref = topk.topk_mq_plain(emb, sc, q, count, mask, k)
+                what = f"{name} 1M int8 {sname} b={b} k={k}"
+                err = check_scan(got, ref, emb, sc, q, count, lambda idx: mask[idx.long()] > 0, TOL_INT8, what)
+                kernel_err[name] = max(kernel_err[name], err)
+                top = got[1][0, : min(k, len(want))].tolist()
+                require(top == want[: len(top)], f"{what}: tie rule {got[1][0].tolist()}")
+                if not want:
+                    require(bool((got[0] == -3.0).all()) and bool((got[1] == -1).all()),
+                            f"{what}: an empty scope gave hits")
+                checks += 1
+    del m_dev, emb, sc, qs
 
     # K8 and K9: the int8 and packed-int4 selection shadows of unit rows
     # (codes of both signs in both nibbles), a ragged watermark (the last
@@ -875,10 +932,29 @@ def main() -> int:
     kernel_err["topk_q"] = max(kernel_err["topk_q"], check_scan(
         got, ref_raw, s._buf, s._scales, qd, s._count, lambda idx: idx >= 0, TOL_INT8, "K6 1M int8"))
     ms, plain = in_turns(host_ms, batch_lookup(s), plain_lookup(s))
+    # K6's shape entries at this store: b = 256 (the served batches) and 8
+    # (the smallest padded batch), each counted from a lookup at its batch.
+    codes_bf16 = s._buf[: live_rows(s._count)].to(torch.bfloat16)
+    for b, entry in ((256, "topk_q_1m_b256"), (8, "topk_q_1m_b8")):
+        topk.reset_launch_counts()
+        s.fuzzy_lookup_embeddings_batch(big[:b], max_hits=K_MAIN)
+        path_launches[entry] = topk.launch_counts()["topk_q"]
+        qe = qd[:b]
+        kernel_err[entry] = check_scan(
+            topk.fused_topk_q(s._buf, s._scales, qe, s._count, K_MAIN),
+            topk.topk_q_plain(s._buf, s._scales, qe, s._count, K_MAIN),
+            s._buf, s._scales, qe, s._count, lambda idx: idx >= 0, TOL_INT8, f"K6 1M int8 b={b}")
+        record(entry,
+               in_turns(cuda_ms, lambda: topk.fused_topk_q(s._buf, s._scales, qe, s._count, K_MAIN),
+                        lambda: topk.topk_q_plain(s._buf, s._scales, qe, s._count, K_MAIN)),
+               scan_bound(s._count, s._buf.shape[1], 1, b, b * K_MAIN * 8, PEAK_BF16, s._count * 4),
+               cuda_ms(lambda: torch.matmul(qe.to(torch.bfloat16), codes_bf16.T), iters=3))
+    del codes_bf16
     emit({"phase": 5, "rows": s._count, "dtype": "int8", "route": "quantized (K6)",
           "launches": counts, "batcher": stats8, "served_queries": 256 * len(requests8),
           "agree_with_plain": same / (K_MAIN * len(res)), "max_score_err_vs_plain": worst,
           "recall_vs_f32": recall_f32, "ms_per_batch256": ms, "plain_ms_per_batch256": plain,
+          "k6_ms": {e: kernel_ms[e][0] for e in ("topk_q_1m_b256", "topk_q_1m_b8")},
           "ok": True})
     del s, store, buf, shadow, ids, rows_dev
 
@@ -1007,8 +1083,8 @@ def main() -> int:
             api_ms, api_plain_ms = in_turns(
                 lambda fn: host_ms(fn, iters=3), lambda: run_search(scope), plain_run)
             # The bound counts the rows the scope needs (live and in
-            # scope), their scales, and the whole row mask if the kernel
-            # reads one.
+            # scope), their scales, and the whole row mask if the search
+            # reads one (K7's wrapper reads it once to list the tiles).
             scope_rows = count if mask is None else int((mask[:count] > 0).sum())
             extra = scope_rows * 4 if sc is not None else 0
             if name in ("topk_mask", "topk_mq"):
@@ -1019,6 +1095,9 @@ def main() -> int:
             # their first corpus search.
             if name not in kernel_ms:
                 record(name, (ms, plain_ms), bound, product_ms)
+            if name == "topk_mq":  # the tiles K7 read (its scope's list) against the live ones
+                _, n_tiles = topk.scope_tiles(mask, count)
+                out[scope + "_tiles"] = {"read": int(n_tiles.item()), "live": -(-count // 128)}
             out[scope] = {"kernel": name, "intervals": n_iv, "max_abs_err": err,
                           "kernel_ms": ms, "plain_kernel_ms": plain_ms, "scope_rows": scope_rows,
                           "bound_ms": bound[0], "bound_by": bound[1],

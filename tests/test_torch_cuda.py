@@ -434,6 +434,110 @@ def test_fused_topk_mq_matches_plain(dev, k):
     assert got[1][0, :3].tolist() == [99, 2048, 8954][:k]
 
 
+# K6 and K7 on the tensor-core loop: a store of 256 tiles whose count ends
+# inside tile 253 (rows past it hold data), and scopes that skip tiles.
+_I8_N, _I8_COUNT = 1 << 15, (1 << 15) - 333
+
+
+def _int8_scope(name, edge):
+    """(row spans in scope or None for K6, duplicates of row dupes[0]);
+    ``edge`` is the first row of K6's split 1 at the batch."""
+    t = 128
+    return {
+        "global": (None, [127, 128, edge - 1, edge, _I8_COUNT - 1, _I8_COUNT + 5]),
+        # In-scope tiles 3, 7-8, 20 and 200, wholly out-of-scope tiles
+        # between them; one duplicate out of scope (tile 150).
+        "gaps": ([(3 * t + 5, 3 * t + 60), (7 * t, 9 * t), (20 * t + 100, 20 * t + 101), (200 * t, 201 * t)],
+                 [3 * t + 10, 7 * t + 127, 8 * t, 20 * t + 100, 200 * t + 1, 150 * t]),
+        # In-scope rows only in the last tile of one split and the first of
+        # the next; their two tiles fall to two CTAs of the list too.
+        "split_edge": ([(edge - 64, edge + 64)], [edge - 1, edge]),
+        # Duplicates on both sides of a skipped tile (11), one inside it.
+        "skipped_dupes": ([(10 * t, 11 * t), (12 * t, 13 * t)], [10 * t + 127, 11 * t + 50, 12 * t]),
+        "all": ([(0, _I8_N)], [0, 127, edge, _I8_COUNT - 1]),
+        "empty": ([], [5, 6]),
+        "past_count": ([(_I8_COUNT, _I8_N)], [_I8_COUNT, _I8_COUNT + 1]),
+    }[name]
+
+
+@pytest.mark.parametrize("scope", ["global", "gaps", "split_edge", "skipped_dupes", "all", "empty", "past_count"])
+@pytest.mark.parametrize("b", [1, 8, 16, 64, 256])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_int8_scans_match_plain(dev, scope, b, k):
+    rng = np.random.default_rng(30)
+    d = 384
+    edge, _ = topk.scan_geometry(_I8_COUNT, _I8_N, b, topk._sm_count(0), 64)
+    spans, dupes = _int8_scope(scope, edge)
+    dupes = sorted(set(dupes))  # the split edge may be a tile edge listed already
+    m = rng.standard_normal((_I8_N, d)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    m[dupes] = m[dupes[0]]
+    q_rows, scales = topk.quantize_rows(m)
+    emb, sc = torch.from_numpy(q_rows).to(dev), torch.from_numpy(scales).to(dev)
+    q = _queries(rng, b, d, dev)
+    q[0] = torch.from_numpy(m[dupes[0]]).to(dev)
+    topk.reset_launch_counts()
+    if spans is None:
+        mask = torch.ones(_I8_N, dtype=torch.int32, device=dev)
+        got = topk.fused_topk_q(emb, sc, q, _I8_COUNT, k)
+        ref = topk.topk_q_plain(emb, sc, q, _I8_COUNT, k)
+    else:
+        mask = torch.zeros(_I8_N, dtype=torch.int32, device=dev)
+        for lo, hi in spans:
+            mask[lo:hi] = 1
+        got = topk.fused_topk_mq(emb, sc, q, _I8_COUNT, mask, k)
+        ref = topk.topk_mq_plain(emb, sc, q, _I8_COUNT, mask, k)
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["topk_q" if spans is None else "topk_mq"] == 1
+    raw = topk._raw_scores_q(emb, sc, q, _I8_COUNT).masked_fill(~(mask > 0), -3.0)
+    _check_scan(got, ref, raw, 1e-5)
+    want = [r for r in dupes if r < _I8_COUNT and mask[r].item() > 0][:k]
+    assert got[1][0, : len(want)].tolist() == want  # lowest-row ties through skips and splits
+    if scope in ("empty", "past_count"):
+        assert bool((got[0] == -3.0).all()) and bool((got[1] == -1).all())
+
+
+@pytest.mark.parametrize("d", [128, 512, 1536])
+@pytest.mark.parametrize("b", [8, 64, 257])
+def test_int8_scans_resident_and_streamed_queries(dev, d, b):
+    """d = 128: resident queries, scores folded in two passes; d = 512 and
+    1536: streamed query strips, one pass."""
+    rng = np.random.default_rng(31)
+    n_pad, count = 9216, 9000 - 45
+    m = rng.standard_normal((n_pad, d)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    q_rows, scales = topk.quantize_rows(m)
+    emb, sc = torch.from_numpy(q_rows).to(dev), torch.from_numpy(scales).to(dev)
+    q = _queries(rng, b, d, dev)
+    mask = torch.from_numpy((rng.random(n_pad) < 0.2).astype(np.int32)).to(dev)
+    got = topk.fused_topk_q(emb, sc, q, count, 10)
+    _check_scan(got, topk.topk_q_plain(emb, sc, q, count, 10), topk._raw_scores_q(emb, sc, q, count), 1e-5)
+    got = topk.fused_topk_mq(emb, sc, q, count, mask, 10)
+    raw = topk._raw_scores_q(emb, sc, q, count).masked_fill(~(mask > 0), -3.0)
+    _check_scan(got, topk.topk_mq_plain(emb, sc, q, count, mask, 10), raw, 1e-5)
+
+
+def test_fused_topk_mq_does_not_synchronize(dev):
+    """The scope's tile list is built on the device: K7 never waits on the
+    host (a LookupBatcher pipelines batches through it)."""
+    rng = np.random.default_rng(32)
+    emb, sc, q, count = _int8_case(dev, rng)
+    mask = topk.intervals_to_rowmask(
+        emb.shape[0], torch.tensor([[0, 1000], [2048, 2049], [8000, 9216]], dtype=torch.int32, device=dev)
+    )[0].contiguous()
+    ref = topk.fused_topk_mq(emb, sc, q, count, mask, 10)  # builds the kernels first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = topk.fused_topk_mq(emb, sc, q, count, mask, 10)
+        tiles, n_tiles = topk.scope_tiles(mask, count)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    cpu_tiles, cpu_n = topk.scope_tiles(mask.cpu(), count)
+    assert torch.equal(tiles.cpu(), cpu_tiles) and torch.equal(n_tiles.cpu(), cpu_n)
+
+
 def test_scoped_routes_count_their_kernels(dev):
     rng = np.random.default_rng(10)
     emb, q, count, _ = _scoped_case(dev, torch.float32, rng)

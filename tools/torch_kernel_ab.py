@@ -2,7 +2,7 @@
 """Time the PyTorch port's kernels and batch lookups of two trees in turns.
 
     python3 tools/torch_kernel_ab.py --base DIR [--change DIR] [--out FILE]
-                                     [--profile CASE ...]
+                                     [--only TEXT ...] [--profile CASE ...]
 
 Each tree is a checkout holding ``typeagent_tpu_torch/`` (for example the
 parent commit unpacked with ``git archive`` into a gitignored directory).
@@ -14,21 +14,32 @@ batch lookup (lookups). It prints one JSON line per child and a last line
 with, per case, the mean of each tree's two runs, their spread and the
 ratio change / base. With --profile, each child also runs the named cases
 five times under torch.profiler and reports, per call, the device time by
-kernel and in all, beside the wall time (the device's busy share). Needs
-one CUDA card; there is no CPU mode.
+kernel and in all, beside the wall time (the device's busy share). With
+--only, each child times just the cases whose names hold one of the given
+texts (and skips the inputs no such case needs). Each child also hashes
+the tensors every case returns; the last line's ``same_outputs`` says
+whether all four runs returned the same bits. Needs one CUDA card; there
+is no CPU mode.
 
 Cases (1M x 384 unit rows unless named, k = 10): K1 f32 at b = 256, 16 and
 8, and at 100k rows at b = 256 and 8; K2 over the bf16 shadow at b = 256
 and 8; K2' f32 and bf16 at b = 256; K3 (unchanged, a control); K4 (8
-intervals), K5 (a row mask), K6 and K7 over int8 rows at b = 64; K8 and
-K9 at b = 256; the IVF program over the rows in bf16 (B = 16, a 3%
-outlier tail), its tail and the tail's K2; the batch-256 lookup of a 1M
-f32 store (hybrid exact2: K2 + K3) and of a 100k store (K1).
+intervals), K5 (a row mask), K6 and K7 over int8 rows at b = 64; K6 also
+at b = 8, 16 and 256, and K7 over a one-third scope of 8 interleaved
+segments (one conversation of the corpus layout below); K8 and K9 at b =
+256; the IVF program over the rows in bf16 (B = 16, a 3% outlier tail),
+its tail and the tail's K2; the batch-256 lookup of a 1M f32 store (hybrid
+exact2: K2 + K3) and of a 100k store (K1). Then the int8 corpus of
+chip_smoke.py phase 7, a CorpusVectorStore of 30,000,000 x 384 int8 rows
+in 24 segments of 1,250,000 over three conversations, b = 64: K6 (global)
+and K7 scoped to one conversation (8 segments) and to two (16), and the
+corpus's own search (host clock), global and for one conversation.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -37,6 +48,10 @@ import time
 
 SEED = 20261016
 N, D, K = 1_000_000, 384, 10
+# chip_smoke.py phase 7's corpus: 24 segments of 1,250,000 int8 rows, segment
+# i in conversation CORPUS_NAMES[i % 3].
+CORPUS_SEG_ROWS, CORPUS_SEGMENTS = 1_250_000, 24
+CORPUS_NAMES = ("podcast", "mailbox", "wiki")
 
 
 def profile(fn, iters: int = 5) -> dict:
@@ -55,6 +70,10 @@ def profile(fn, iters: int = 5) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1000 / iters
     by_kernel = {}
     for evt in prof.key_averages():
+        # Device-side events only: a host op (aten::*) also reports the
+        # time of the kernels it launched, which would count them twice.
+        if evt.device_type == torch.autograd.DeviceType.CPU:
+            continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
@@ -65,7 +84,31 @@ def profile(fn, iters: int = 5) -> dict:
     return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms, "by_kernel_ms": top}
 
 
-def child(root: str, profiled: list[str]) -> dict:
+def conversation_mask(n_rows: int, seg_rows: int, convs: tuple) -> "torch.Tensor":
+    """[n_rows] int32: the rows of conversations ``convs`` (of 0, 1, 2) in
+    the layout segment i -> conversation i % 3."""
+    import torch
+
+    seg = torch.arange(n_rows, device="cuda") // seg_rows
+    return torch.isin(seg % 3, torch.tensor(convs, device="cuda")).to(torch.int32)
+
+
+def digest(result) -> str | None:
+    """sha256 of the tensors a case returns, in order (None when it returns
+    none, as the host lookups do)."""
+    import torch
+
+    parts = result if isinstance(result, (tuple, list)) else (result,)
+    tensors = [t for t in parts if isinstance(t, torch.Tensor)]
+    if not tensors:
+        return None
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def child(root: str, profiled: list[str], only: list[str]) -> dict:
     import torch
 
     if not torch.cuda.is_available():
@@ -96,6 +139,10 @@ def child(root: str, profiled: list[str]) -> dict:
     iv = torch.tensor([[i * 125_000, i * 125_000 + 62_500] for i in range(8)], dtype=torch.int32, device=dev)
     mask = topk.intervals_to_rowmask(n_pad, iv)[0].contiguous()
     q64 = q256[:64].contiguous()
+    # One conversation of three in 24 interleaved segments: 8 segments, a
+    # third of the rows.
+    third = conversation_mask(n_pad, N // CORPUS_SEGMENTS, (0,))
+    wanted = lambda name: not only or any(text in name for text in only)  # noqa: E731
 
     def cuda_ms(fn, iters=10):
         fn()
@@ -144,8 +191,12 @@ def child(root: str, profiled: list[str]) -> dict:
         "K3 f32 1M b256 B24": lambda: topk.rescore_selected(rows, q256, ids),
         "K4 f32 1M b64 8 intervals": lambda: topk.fused_topk_iv(rows, q64, N, iv, K),
         "K5 f32 1M b64 mask": lambda: topk.fused_topk_masked(rows, q64, N, mask, K),
+        "K6 int8 1M b8": lambda: topk.fused_topk_q(emb_q, scales, q256[:8], N, K),
+        "K6 int8 1M b16": lambda: topk.fused_topk_q(emb_q, scales, q256[:16], N, K),
         "K6 int8 1M b64": lambda: topk.fused_topk_q(emb_q, scales, q64, N, K),
+        "K6 int8 1M b256": lambda: topk.fused_topk_q(emb_q, scales, q256, N, K),
         "K7 int8 1M b64 mask": lambda: topk.fused_topk_mq(emb_q, scales, q64, N, mask, K),
+        "K7 int8 1M b64 one-third scope": lambda: topk.fused_topk_mq(emb_q, scales, q64, N, third, K),
         "K8 int8 1M b256": lambda: topk.bucket_maxima_q(emb_q, scales, q256, N),
         "K9 int4 1M b256": lambda: int4.bucket_maxima_q4(packed, sc4, q_split, N),
         "IVF 1M bf16 B16 program b256": lambda: ivf.ivf_topk_program(*state, q256, K, B=16),
@@ -154,11 +205,44 @@ def child(root: str, profiled: list[str]) -> dict:
     }
     cases["lookup 1M f32 b256 (host)"] = lambda: big.fuzzy_lookup_embeddings_batch(q_host, max_hits=K)
     cases["lookup 100k f32 b256 (host)"] = lambda: small.fuzzy_lookup_embeddings_batch(q_host, max_hits=K)
+    cases = {name: fn for name, fn in cases.items() if wanted(name)}
     out = {name: (host_ms if name.endswith("(host)") else cuda_ms)(fn) for name, fn in cases.items()}
+    corpus_cases = {
+        "K6 int8 30M b64": None,
+        "K7 int8 30M b64 one conversation": ("podcast",),
+        "K7 int8 30M b64 two conversations": ("podcast", "wiki"),
+        "corpus int8 30M b64 global (host)": None,
+        "corpus int8 30M b64 one conversation (host)": ("podcast",),
+    }
+    corpus_cases = {name: convs for name, convs in corpus_cases.items() if wanted(name)}
+    if corpus_cases:
+        from typeagent_tpu_torch.parallel import CorpusVectorStore
+
+        corpus = CorpusVectorStore(D, device="cuda", dtype="int8")
+        corpus.reserve(CORPUS_SEG_ROWS * CORPUS_SEGMENTS)
+        for seg in range(CORPUS_SEGMENTS):
+            for done in range(0, CORPUS_SEG_ROWS, 500_000):
+                corpus.append_device(CORPUS_NAMES[seg % 3], unit(min(500_000, CORPUS_SEG_ROWS - done)))
+        codes, sc30, n30 = corpus._store.buf, corpus._store._scales, corpus._store.count
+        q64_host = q64.cpu().numpy()
+        for name, convs in corpus_cases.items():
+            if name.endswith("(host)"):
+                fn = lambda convs=convs: corpus.search(q64_host, k=K, conversations=convs)  # noqa: E731
+                out[name] = host_ms(fn, iters=5)
+            else:
+                if convs is None:
+                    fn = lambda: topk.fused_topk_q(codes, sc30, q64, n30, K)  # noqa: E731
+                else:
+                    m30 = conversation_mask(codes.shape[0], CORPUS_SEG_ROWS,
+                                            tuple(CORPUS_NAMES.index(c) for c in convs))
+                    fn = lambda m30=m30: topk.fused_topk_mq(codes, sc30, q64, n30, m30, K)  # noqa: E731
+                out[name] = cuda_ms(fn, iters=5)
+            cases[name] = fn
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     return {"root": root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "ms": out,
-            "profiles": {name: profile(cases[name]) for name in profiled}}
+            "digests": {name: digest(fn()) for name, fn in cases.items()},
+            "profiles": {name: profile(cases[name]) for name in profiled if name in cases}}
 
 
 def main() -> int:
@@ -168,15 +252,17 @@ def main() -> int:
     ap.add_argument("--out", help="also write the child lines and the summary here")
     ap.add_argument("--profile", nargs="*", default=[], metavar="CASE",
                     help="cases to break down by kernel with torch.profiler")
+    ap.add_argument("--only", nargs="*", default=[], metavar="TEXT",
+                    help="time only the cases whose names hold one of these texts")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.child, args.profile)), flush=True)
+        print(json.dumps(child(args.child, args.profile, args.only)), flush=True)
         return 0
     runs = []
     for root in (args.base, args.change, args.change, args.base):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--base", args.base, "--child", root,
-                              "--profile", *args.profile], capture_output=True, text=True)
+                              "--profile", *args.profile, "--only", *args.only], capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stderr)
             raise SystemExit(f"torch_kernel_ab: the run of {root} failed ({res.returncode})")
@@ -189,7 +275,10 @@ def main() -> int:
         change = [runs[1]["ms"][name], runs[2]["ms"][name]]
         summary[name] = {"base_ms": sum(base) / 2, "change_ms": sum(change) / 2,
                          "base_runs": base, "change_runs": change,
-                         "ratio": (sum(change) / 2) / (sum(base) / 2)}
+                         "ratio": (sum(change) / 2) / (sum(base) / 2),
+                         # whether both trees returned the same bits (None: not tensors)
+                         "same_outputs": None if runs[0]["digests"][name] is None
+                         else len({run["digests"][name] for run in runs}) == 1}
     last = {"base": args.base, "change": args.change, "nvidia_smi": runs[0]["nvidia_smi"], "cases": summary}
     if args.out:
         with open(args.out, "w") as f:

@@ -1,14 +1,14 @@
 // Shared pieces of the cosine top-k kernels: the FFMA score tile that the
-// top-k scans (topk.cu: K1, K4-K7) and the f32 bucket kernels
+// f32 and bf16 top-k scans (topk.cu: K1, K4, K5) and the f32 bucket kernels
 // (bucket_maxima.cu: K2 and K2' on f32 stores) run over a range of 128-row
 // tiles, the warp-held sorted top-k list that the scan and merge passes
 // share, and the cp.async helpers of every staged kernel.
 //
 // The tile is a plain FP32 FFMA product (no TF32, no tensor cores): the JAX
 // kernels score f32 stores at Precision.HIGHEST, and the products of a bf16
-// store (bf16 x bf16) or an int8 store (bf16 query x int8 row) are exact in
-// f32, so FFMA on upcast operands gives the same sums up to summation
-// order.
+// store (bf16 x bf16) are exact in f32, so FFMA on upcast operands gives
+// the same sums up to summation order. (int8 rows take the tensor-core
+// loop of mma_tile.cuh.)
 //
 // What bounds it on an H100: the FP32 FFMA rate (67 TFLOP/s) at serving
 // batches, 2*b*n*d operations; the store read at b <= 8. The first design
@@ -24,9 +24,9 @@
 //     two-slot ring: f32 operands ride 16-byte cp.async copies issued a
 //     chunk ahead, so the next chunk's loads overlap this chunk's FFMAs
 //     (and the next tile's first chunk overlaps this tile's epilogue);
-//     bf16 and int8 rows (and the queries they take, rounded to bf16) are
-//     loaded into registers a chunk ahead and converted exactly on the
-//     store, one barrier per chunk either way;
+//     bf16 rows (and the queries they take, rounded to bf16) are loaded
+//     into registers a chunk ahead and converted exactly on the store, one
+//     barrier per chunk either way;
 //   * the [QB x 128] score block leaves the accumulators through shared
 //     memory, so that each warp then reads its TQ queries' 128 scores lane
 //     by lane in ascending row order (the top-k fold and the bucket
@@ -58,9 +58,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 
 // Queries arrive as f32 and are cast to the store dtype first, as the JAX
 // kernels do (q.astype(emb.dtype)), then upcast for the f32 product: an
-// f32 store takes them as they are, a bf16 store rounds them to bf16, and
-// so does an int8 store (the JAX int8 kernels take
-// queries.astype(bfloat16)).
+// f32 store takes them as they are, a bf16 store rounds them to bf16.
 __device__ __forceinline__ float bf16_rounded(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -107,11 +105,12 @@ struct FfmaTile {
 
 // Stages chunk [d0, d0 + KC) of query block q0 and tile r0 into a slot:
 // queries at [qi * KP], rows at [(QB + ri) * KP]. Queries at or past b and
-// rows at or past n_rows read as zero. bf16 and int8 rows: fetch loads the
-// chunk into registers, put converts it (rows exactly, queries rounded to
-// bf16) into the slot.
+// rows at or past n_rows read as zero. bf16 rows: fetch loads the chunk
+// into registers, put converts it (rows exactly, queries rounded to bf16)
+// into the slot.
 template <typename T, int TQ>
 struct ChunkStager {
+  static_assert(sizeof(T) == 2, "bf16 rows; f32 rows have their own stager");
   static constexpr int QB = FfmaTile<TQ>::QB;
   static constexpr int RVEC = 16 / sizeof(T);            // row elements per load
   static constexpr int RLOADS = RB * KC / RVEC / THREADS;  // per thread
@@ -148,19 +147,11 @@ struct ChunkStager {
       const int c = threadIdx.x + u * THREADS;
       float* dst = slot + (QB + c / (KC / RVEC)) * KP + (c % (KC / RVEC)) * RVEC;
       const uint32_t w[4] = {rows[u].x, rows[u].y, rows[u].z, rows[u].w};
-      if constexpr (sizeof(T) == 2) {  // bf16: the upcast is exact
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<float4*>(dst + 4 * h) = make_float4(
-              __uint_as_float(w[2 * h] << 16), __uint_as_float(w[2 * h] & 0xffff0000u),
-              __uint_as_float(w[2 * h + 1] << 16), __uint_as_float(w[2 * h + 1] & 0xffff0000u));
-      } else {  // int8: byte k of w[h] is column 4h + k
-#pragma unroll
-        for (int h = 0; h < 4; ++h)
-          *reinterpret_cast<float4*>(dst + 4 * h) =
-              make_float4((float)(int8_t)(w[h] & 0xff), (float)(int8_t)((w[h] >> 8) & 0xff),
-                          (float)(int8_t)((w[h] >> 16) & 0xff), (float)(int8_t)(w[h] >> 24));
-      }
+      for (int h = 0; h < 2; ++h)  // the bf16 -> f32 upcast is exact
+        *reinterpret_cast<float4*>(dst + 4 * h) = make_float4(
+            __uint_as_float(w[2 * h] << 16), __uint_as_float(w[2 * h] & 0xffff0000u),
+            __uint_as_float(w[2 * h + 1] << 16), __uint_as_float(w[2 * h + 1] & 0xffff0000u));
     }
 #pragma unroll
     for (int u = 0; u < QLOADS; ++u) {

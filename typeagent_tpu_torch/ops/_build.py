@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 KERNEL_SOURCES = ("topk.cu", "bucket_maxima.cu", "rescore.cu")
-KERNEL_HEADERS = ("tile.cuh",)
+KERNEL_HEADERS = ("tile.cuh", "mma_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -123,7 +123,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     # Every top-k scan takes (emb, dtype code or scales, q, n_rows, d_pad,
     # b, count, k, rows_per_split, splits, query_block, <filter operands>,
-    # cand_vals, cand_idx, stream).
+    # cand_vals, cand_idx, stream); K7's filter operands are the mask, the
+    # tile list and its device count.
     geometry = [p, i64, i32, i32, i64, i32, i64, i32, i32]
     tail = [p, p, p]
     signatures = {
@@ -131,7 +132,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tat_topk_scan_iv": [p, i32, *geometry, p, i32, *tail],
         "tat_topk_scan_mask": [p, i32, *geometry, p, *tail],
         "tat_topk_scan_q": [p, p, *geometry, *tail],
-        "tat_topk_scan_mq": [p, p, *geometry, p, *tail],
+        "tat_topk_scan_mq": [p, p, *geometry, p, p, p, *tail],
         "tat_topk_merge": [p, p, i32, i32, i32, p, p, p],
         # (..., count, buckets_per_cta, ctas_per_qb[, query_block], out, ...)
         "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, i64, i32, i32, p, p, p],

@@ -10,7 +10,9 @@ the exact routes:
     K4 ``fused_topk_iv`` (rows inside <= 8 ``[start, stop)`` intervals),
     K5 ``fused_topk_masked`` (rows whose i32 mask entry is > 0),
     K6 ``fused_topk_q`` (int8 rows with per-row scales) and
-    K7 ``fused_topk_mq`` (K6 with K5's mask);
+    K7 ``fused_topk_mq`` (K6 with K5's mask), the last two on the
+    tensor-core loop of K8 (``csrc/mma_tile.cuh``), K7 reading only the
+    tiles that hold an in-scope row (:func:`scope_tiles`);
   * K2 ``bucket_maxima``: maximum raw cosine of each 128-row bucket, the
     selection phase of the two-phase ("exact2") search; K2'
     ``bucket_argmax``, the same kernel with the argmax row of each bucket,
@@ -67,6 +69,7 @@ __all__ = [
     "bucket_maxima_q_plain",
     "rescore_selected_plain",
     "intervals_to_rowmask",
+    "scope_tiles",
     "topk_program_masked",
     "topk_program_intervals",
     "quantize_rows",
@@ -116,8 +119,9 @@ _PLAIN_CHUNK = 1 << 16
 # x 384 int8 store upcast in one piece would need 46 GB).
 _PLAIN_TOPK_CHUNK = 1 << 20
 # Kernel tile shape (csrc/tile.cuh): 128-row tiles (one bucket each) and
-# the tensor-core tile's 64-query block (csrc/bucket_maxima.cu); the FFMA
-# tile's query block follows the batch (topk_query_block).
+# the tensor-core loop's 64-query block (csrc/mma_tile.cuh: K2 and K2' on
+# bf16 stores, K6-K9); the FFMA tile's query block follows the batch
+# (topk_query_block).
 _RB = 128
 _MMA_QB = 64
 # Every scan and bucket kernel is __launch_bounds__(256, 2) with at most
@@ -235,6 +239,8 @@ def _check_int8_operands(
         or not scales.is_contiguous()
     ):
         raise ValueError("scales must be a contiguous [n_rows] float32 tensor on the store's device")
+    if emb_q.shape[1] % 64:
+        raise ValueError(f"int8 rows stage 64-column strips: needs width % 64 == 0, got width {emb_q.shape[1]}")
 
 
 def _check_rowmask(rowmask: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -309,6 +315,14 @@ def scan_geometry(count: int, n_rows: int, b: int, sms: int, query_block: int) -
     count = max(0, min(int(count), n_rows))
     per, splits = split_range(math.ceil(count / _RB), math.ceil(b / query_block), sms)
     return per * _RB, splits
+
+
+def scope_share(n_tiles: int, splits: int, split: int) -> tuple[int, int]:
+    """Positions ``[first, last)`` of a listed scan's tile list (K7) that
+    CTA ``split`` of ``splits`` walks, as ``csrc/topk.cu`` computes them
+    from the device count: contiguous, ascending with ``split``, and
+    within one tile of each other in size."""
+    return n_tiles * split // splits, n_tiles * (split + 1) // splits
 
 
 def bucket_geometry(count: int, n_rows: int, b: int, sms: int, query_block: int) -> tuple[int, int]:
@@ -399,17 +413,20 @@ def _topk_chunked(raw_of, n_rows: int, k: int) -> tuple[torch.Tensor, torch.Tens
 def _launch_topk(
     entry: str, counter: LaunchCounter, emb: torch.Tensor, head: tuple,
     queries: torch.Tensor, count: int, k: int, tail: tuple = (),
+    query_block: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch one scan entry point of ``csrc/topk.cu`` and the merge:
     ``entry(emb, *head, q, n_rows, d_pad, b, count, k, rows_per_split,
     splits, query_block, *tail, cand_vals, cand_idx, stream)``. Operands
-    are checked by the caller."""
+    are checked by the caller. ``query_block`` defaults to the FFMA tile's
+    (:func:`topk_query_block`)."""
     if not 1 <= k <= _PALLAS_MAX_K:
         raise ValueError(f"fused top-k takes 1 <= k <= {_PALLAS_MAX_K}, got {k}")
     n_rows, d_pad = emb.shape
     b = queries.shape[0]
     count = max(0, min(int(count), n_rows))
-    query_block = topk_query_block(b)
+    if query_block is None:
+        query_block = topk_query_block(b)
     rows_per_split, splits = scan_geometry(
         count, n_rows, b, _sm_count(emb.device.index), query_block
     )
@@ -539,13 +556,15 @@ def fused_topk_q(
     emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
     count: int, k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K6 (``csrc/topk.cu``), as :func:`topk_q_plain`; queries are f32 and
-    the kernel rounds them to bf16."""
+    """K6 (``csrc/topk.cu``, on the tensor-core loop), as
+    :func:`topk_q_plain`; queries are f32 and are cast to bf16 once here,
+    as the JAX kernel's caller casts them. ``d_pad % 64 == 0``."""
     if emb_q.device.type == "cpu":
         return topk_q_plain(emb_q, scales, queries, count, k)
     _check_int8_operands(emb_q, scales, queries)
     return _launch_topk(
-        "tat_topk_scan_q", TOPK_Q_LAUNCHES, emb_q, (scales.data_ptr(),), queries, count, k
+        "tat_topk_scan_q", TOPK_Q_LAUNCHES, emb_q, (scales.data_ptr(),),
+        queries.to(torch.bfloat16), count, k, query_block=_MMA_QB,
     )
 
 
@@ -569,14 +588,17 @@ def fused_topk_mq(
     count: int, rowmask: torch.Tensor, k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K7 (``csrc/topk.cu``), as :func:`topk_mq_plain`; the mask is
-    int32."""
+    int32. The kernel reads only the tiles :func:`scope_tiles` lists,
+    which it builds on the device without a host synchronisation."""
     if emb_q.device.type == "cpu":
         return topk_mq_plain(emb_q, scales, queries, count, rowmask, k)
     _check_int8_operands(emb_q, scales, queries)
     mask = _check_rowmask(rowmask, emb_q)
+    tiles, n_tiles = scope_tiles(mask, count)
     return _launch_topk(
-        "tat_topk_scan_mq", TOPK_MQ_LAUNCHES, emb_q, (scales.data_ptr(),), queries,
-        count, k, (mask.data_ptr(),),
+        "tat_topk_scan_mq", TOPK_MQ_LAUNCHES, emb_q, (scales.data_ptr(),),
+        queries.to(torch.bfloat16), count, k,
+        (mask.data_ptr(), tiles.data_ptr(), n_tiles.data_ptr()), query_block=_MMA_QB,
     )
 
 
@@ -860,6 +882,39 @@ def intervals_to_rowmask(n: int, intervals: torch.Tensor) -> torch.Tensor:
     pos = torch.searchsorted(sorted_starts, rows, right=True) - 1
     stop_at = cum_stops[pos.clamp(0, sorted_starts.shape[0] - 1)]
     return ((pos >= 0) & (rows < stop_at)).to(torch.int32)[None, :]
+
+
+def scope_tiles(mask: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 128-row tiles a scoped scan must read: those holding at least
+    one row ``r < count`` whose ``mask`` entry (``[n]`` or ``[1, n]``,
+    ``n % 128 == 0``) is > 0.
+
+    Returns ``(tiles, n_tiles)`` on the mask's device: ``tiles``, int32 of
+    length ``ceil(count / 128)``, holds their indices ascending, then -1;
+    ``n_tiles`` is a ``[1]`` int32 tensor holding how many. Built from torch
+    ops alone, with no host synchronisation (no ``.item()``, ``nonzero``
+    or ``unique``), so a pipelined server never waits on it: a flag per
+    tile, a running count of the flags for each listed tile's position,
+    and a scatter.
+    """
+    m = mask.reshape(-1)
+    if m.shape[0] % _RB:
+        raise ValueError(f"mask length {m.shape[0]} is not a multiple of {_RB}")
+    count = max(0, min(int(count), m.shape[0]))
+    live = -(-count // _RB)
+    flags = m[: live * _RB].view(live, _RB) > 0
+    if count % _RB:
+        flags[-1, count % _RB :] = False  # rows past the count
+    hit = flags.any(dim=1)
+    pos = torch.cumsum(hit, 0, dtype=torch.int32)
+    n_tiles = pos[-1:] if live else torch.zeros((1,), dtype=torch.int32, device=m.device)
+    # Unlisted tiles land in a spare last slot, cut off below.
+    tiles = torch.full((live + 1,), -1, dtype=torch.int32, device=m.device)
+    tiles.scatter_(
+        0, torch.where(hit, pos - 1, live).long(),
+        torch.arange(live, dtype=torch.int32, device=m.device),
+    )
+    return tiles[:live], n_tiles
 
 
 def topk_program_masked(
