@@ -17,13 +17,16 @@ Phases, one JSON line each:
      one-bucket cluster and a store of one bucket, at 65,536 rows and
      (K4-K7) at 1M x 384 (later phases check each kernel again at their
      shapes; K8 and K9 at d = 128 and 384, and 100 for K9, b = 1, 8, 256,
-     a ragged watermark, a store of one bucket and a dead one); then K6
-     and K7 at 1M x 384 int8, b = 1, 8, 64, 256, k = 1, 10, 32, over scopes
-     that make K7 skip tiles: in-scope tiles with wholly out-of-scope tiles
-     between them, in-scope rows only in the last tile of one split and
-     the first of the next, duplicates on both sides of a skipped tile, an
-     empty scope and a scope whose only rows lie past the count (both
-     must give only (-3, -1));
+     a ragged watermark, a store of one bucket and a dead one); then the
+     listed scans at 1M x 384, b = 1, 8, 64, 256, k = 1, 10, 32: K6 and K7
+     over int8 rows, K4 (interval table) and K5 (row mask) over f32 and
+     bf16 rows, over scopes that make them skip tiles: in-scope tiles with
+     wholly out-of-scope tiles between them, in-scope rows only in the last
+     tile of one split and the first of the next, duplicates on both sides
+     of a skipped tile, an empty scope and a scope whose only rows lie past
+     the count (both must give only (-3, -1)), and the whole store; at
+     every scope, the listing kernels (``interval_tiles`` from the table,
+     ``scope_tiles`` from the row mask) give their plain versions' lists;
   2. the main path at full width: a 1M x 384 f32 store ingested in 10
      chunks while it answers lookups, then served through LookupBatcher
      (64 concurrent requests), one batch-256 sync lookup and one keyed
@@ -42,7 +45,9 @@ Phases, one JSON line each:
      layout: 9,984,000 x 384 rows made on the card in 24 interleaved
      segments over three conversations, b=64 k=10, searched globally (K1),
      scoped to one conversation (8 intervals, K4), to two (9 intervals
-     after merging, row mask + K5) and to a 100k-row subset (K5);
+     after merging, row mask + K5) and to a 100k-row subset (K5), with the
+     tiles K4 and K5 read beside the live ones and the time of the listing
+     kernel that listed them (its plain version's list must be the same);
   7. the int8 corpus at 30,000,000 x 384 in the same layout (the f32 one
      freed first): global (K6), one and two conversations (row mask, K7),
      with the tiles K7 read beside the live ones;
@@ -57,7 +62,8 @@ Phases, one JSON line each:
      rows_per_cluster=512): build seconds and buckets; recall@10 against
      the exact1 oracle, certificate rate and batch-256 latency at B = 8, 12,
      16; certified answers held to the oracle; 10% more rows appended
-     (the suffix rides K4 and is found), a background rebuild swapped in;
+     (the suffix rides K4 and is found; the tiles it read, K4's time on it
+     and the b=256 lookup's), a background rebuild swapped in;
      b=256 served through LookupBatcher. Then 10,000,000 x 384 with 10,000
      topics: build seconds, recall and B=16 latency beside exact1, and the
      certified pipeline. Each scale warms its serving routes first
@@ -83,12 +89,14 @@ lies in its scope; a probe row from each conversation finds itself.
 
 The line before the last holds every kernel's launches, error and time
 beside its plain version's (K1 also at 100k rows and at b = 8, K2 at b =
-8, K6 at 1M rows and b = 256 and 8, as entries of their own), its bound on this card (the larger of the
+8, K6 at 1M rows and b = 256 and 8, as entries of their own; the two
+listing kernels at phase 6's first scopes), its bound on this card (the larger of the
 bytes it must move over 3.35 TB/s and its operations over the peak of
 their type: 67 TFLOP/s f32, 989 bf16; rows a scope excludes are not
 counted), the share of that bound it reaches, and the time of
 ``torch.matmul`` of the same operands in the kernel's product type
-(``product_ms``: the product alone, not the same function; no single
+(``product_ms``: the product alone, not the same function, null for the
+listing kernels, which multiply nothing; no single
 PyTorch call computes any of these kernels' functions, so ``library_ms``
 is null); the last line is the device summary. Any
 failed check exits non-zero. There is no CPU mode: without a CUDA device
@@ -126,7 +134,7 @@ CORPUS_INT8_SEG_ROWS = 1_250_000  # 24 x 1,250,000 = 30,000,000 rows
 CORPUS_CHUNK = 500_000  # rows made on the card per append_device
 CORPUS_B = 64
 KERNELS = ("topk", "bucket_maxima", "bucket_argmax", "rescore", "topk_iv", "topk_mask", "topk_q",
-           "topk_mq", "bucket_maxima_q", "bucket_maxima_q4")
+           "topk_mq", "bucket_maxima_q", "bucket_maxima_q4", "interval_tiles", "scope_tiles")
 # Further entries of the kernels line: a kernel at another of its paths'
 # shapes (K1 at phase 3's 100k-row store, K1 and K2 at b = 8, the store's
 # smallest padded batch, K6 at phase 5's 1M-row int8 store at b = 256 and
@@ -324,6 +332,31 @@ def main() -> int:
             live = row[row >= 0]
             require(len(set(live.tolist())) == live.size, f"{what}: duplicate index")
         return err
+
+    def check_tile_list(name, operand, count, n_rows, what, timed=True):
+        """A listing kernel (``interval_tiles`` from an interval table,
+        ``scope_tiles`` from a row mask) against its plain version: the
+        same list and count, entry for entry. Timed, it runs in turns with
+        its plain version, and its first timed shape gives the kernels
+        line's entry, bound by the table or the mask's rows below the count
+        read once and the list written once. Returns (listed tiles, ms or
+        None)."""
+        if name == "interval_tiles":
+            kern = lambda: topk.interval_tiles(operand, count, n_rows)  # noqa: E731
+            plain = lambda: topk.interval_tiles_plain(operand, count, n_rows)  # noqa: E731
+        else:
+            kern = lambda: topk.scope_tiles(operand, count)  # noqa: E731
+            plain = lambda: topk.scope_tiles_plain(operand, count)  # noqa: E731
+        (got, got_n), (ref, ref_n) = kern(), plain()
+        require(torch.equal(got, ref) and torch.equal(got_n, ref_n), f"{what}: the tile list differs from plain")
+        if not timed:
+            return int(got_n.item()), None
+        ms_pair = in_turns(lambda fn: cuda_ms(fn, iters=10), kern, plain)
+        if name not in kernel_ms:
+            live_count = min(count, n_rows)
+            read = operand.numel() * 4 if name == "interval_tiles" else live_count * 4
+            record(name, ms_pair, bound_of(0.0, read + -(-live_count // 128) * 4 + 4, PEAK_F32), None)
+        return int(got_n.item()), ms_pair[0]
 
     def quantized_store(m_dev, n_pad):
         """int8 rows and scales of unit rows ``m_dev``, padded to n_pad."""
@@ -529,6 +562,9 @@ def main() -> int:
                 iv = torch.tensor(table, dtype=torch.int32, device=dev)
                 mask = topk.intervals_to_rowmask(n_pad, iv)[0].contiguous()
             want = [r for r in dupes if r < count and mask[r].item() > 0]
+            check_tile_list("scope_tiles", mask, count, n_pad, f"{tag} {tname}", timed=False)
+            if iv is not None:
+                check_tile_list("interval_tiles", iv, count, n_pad, f"{tag} {tname}", timed=False)
             for dname, (emb, sc, tol) in stores.items():
                 for b in bs:
                     q = qs[:b].contiguous()
@@ -588,52 +624,67 @@ def main() -> int:
         (64, 256), (10,), "1M",
     )
 
-    # K6 and K7 on the tensor-core loop at 1M x 384 int8. Every row of
-    # `dupes` is one row (query 0), so each scope's top-k of query 0 starts
-    # with its in-scope duplicates in ascending order: through skipped
-    # tiles, list shares and row splits (3839 | 3840 at b <= 64, 15231 |
-    # 15232 at b = 256).
+    # The listed scans at 1M x 384: K6 and K7 on the tensor-core loop over
+    # int8 rows, K4 (the scope's interval table) and K5 (its row mask) on
+    # the FFMA tile over f32 and bf16 rows (the global scope is K6, and for
+    # K4 and K5 the whole store). Every row of `dupes` is one row (query 0),
+    # so each scope's top-k of query 0 starts with its in-scope duplicates
+    # in ascending order: through skipped tiles, list shares and row splits
+    # (3839 | 3840 at b <= 64, 15231 | 15232 at b = 256).
     t = 128
     dupes = sorted([10 * t + 6, 41 * t + 127, 100 * t, 301 * t - 1, 301 * t + 5, 302 * t, 3839, 3840,
                     15231, 15232, 5000 * t + 3, 999_999, 1_000_100])
     m_dev[dupes] = m_dev[dupes[0]].clone()
-    emb, sc = quantized_store(m_dev, n_pad)  # rows past the count hold data
+    # Rows past the count hold data; the listed f32 cases are held to 1e-6.
+    stores = {"int8": (*quantized_store(m_dev, n_pad), TOL_INT8), "float32": (m_dev, None, 1e-6),
+              "bfloat16": (m_dev.to(torch.bfloat16), None, TOL_BF16)}
     qs = torch.nn.functional.normalize(torch.randn((256, D_MAIN), generator=gen, device=dev), dim=1)
     qs[0] = m_dev[dupes[0]]
     for b in (1, 8, 64, 256):
-        edge, _ = topk.scan_geometry(count, n_pad, b, topk._sm_count(0), 64)
-        scopes = {
-            "global": None,
-            "gaps": [(10 * t + 5, 10 * t + 70), (40 * t, 42 * t), (5000 * t + 3, 5000 * t + 4), (7812 * t, n_pad)],
-            "split_edge": [(edge - 64, edge + 64)],
-            "skipped_dupes": [(300 * t, 301 * t), (302 * t, 303 * t)],
-            "empty": [],
-            "past_count": [(count, n_pad)],
-        }
         q = qs[:b].contiguous()
-        for sname, spans in scopes.items():
-            mask = torch.zeros((n_pad,), dtype=torch.int32, device=dev)
-            for lo, hi in [(0, n_pad)] if spans is None else spans:
-                mask[lo:hi] = 1
-            want = [r for r in dupes if r < count and mask[r].item() > 0]
-            for k in (1, 10, 32):
-                name = "topk_q" if spans is None else "topk_mq"
-                if spans is None:
-                    got = topk.fused_topk_q(emb, sc, q, count, k)
-                    ref = topk.topk_q_plain(emb, sc, q, count, k)
-                else:
-                    got = topk.fused_topk_mq(emb, sc, q, count, mask, k)
-                    ref = topk.topk_mq_plain(emb, sc, q, count, mask, k)
-                what = f"{name} 1M int8 {sname} b={b} k={k}"
-                err = check_scan(got, ref, emb, sc, q, count, lambda idx: mask[idx.long()] > 0, TOL_INT8, what)
-                kernel_err[name] = max(kernel_err[name], err)
-                top = got[1][0, : min(k, len(want))].tolist()
-                require(top == want[: len(top)], f"{what}: tie rule {got[1][0].tolist()}")
-                if not want:
-                    require(bool((got[0] == -3.0).all()) and bool((got[1] == -1).all()),
-                            f"{what}: an empty scope gave hits")
-                checks += 1
-    del m_dev, emb, sc, qs
+        for dname, (emb, sc, tol) in stores.items():
+            query_block = 64 if sc is not None else topk.topk_query_block(b)
+            edge, _ = topk.scan_geometry(count, n_pad, b, topk._sm_count(0), query_block)
+            scopes = {
+                "global": None,
+                "gaps": [(10 * t + 5, 10 * t + 70), (40 * t, 42 * t), (5000 * t + 3, 5000 * t + 4), (7812 * t, n_pad)],
+                "split_edge": [(edge - 64, edge + 64)],
+                "skipped_dupes": [(300 * t, 301 * t), (302 * t, 303 * t)],
+                "empty": [],
+                "past_count": [(count, n_pad)],
+            }
+            for sname, spans in scopes.items():
+                spans = [(0, n_pad)] if spans is None else spans
+                mask = torch.zeros((n_pad,), dtype=torch.int32, device=dev)
+                for lo, hi in spans:
+                    mask[lo:hi] = 1
+                table = torch.tensor(spans, dtype=torch.int32, device=dev).reshape(-1, 2)
+                want = [r for r in dupes if r < count and mask[r].item() > 0]
+                if dname == "float32":
+                    for lister, operand in (("interval_tiles", table), ("scope_tiles", mask)):
+                        check_tile_list(lister, operand, count, n_pad, f"1M {sname} b={b}", timed=False)
+                for k in (1, 10, 32):
+                    if sc is None:
+                        ref = topk.topk_iv_plain(emb, q, count, table, k)
+                        runs = [("topk_iv", topk.fused_topk_iv(emb, q, count, table, k)),
+                                ("topk_mask", topk.fused_topk_masked(emb, q, count, mask, k))]
+                    elif sname == "global":
+                        ref = topk.topk_q_plain(emb, sc, q, count, k)
+                        runs = [("topk_q", topk.fused_topk_q(emb, sc, q, count, k))]
+                    else:
+                        ref = topk.topk_mq_plain(emb, sc, q, count, mask, k)
+                        runs = [("topk_mq", topk.fused_topk_mq(emb, sc, q, count, mask, k))]
+                    for name, got in runs:
+                        what = f"{name} 1M {dname} {sname} b={b} k={k}"
+                        err = check_scan(got, ref, emb, sc, q, count, lambda idx: mask[idx.long()] > 0, tol, what)
+                        kernel_err[name] = max(kernel_err[name], err)
+                        top = got[1][0, : min(k, len(want))].tolist()
+                        require(top == want[: len(top)], f"{what}: tie rule {got[1][0].tolist()}")
+                        if not want:
+                            require(bool((got[0] == -3.0).all()) and bool((got[1] == -1).all()),
+                                    f"{what}: an empty scope gave hits")
+                        checks += 1
+    del m_dev, emb, sc, qs, stores
 
     # K8 and K9: the int8 and packed-int4 selection shadows of unit rows
     # (codes of both signs in both nibbles), a ragged watermark (the last
@@ -1095,9 +1146,13 @@ def main() -> int:
             # their first corpus search.
             if name not in kernel_ms:
                 record(name, (ms, plain_ms), bound, product_ms)
-            if name == "topk_mq":  # the tiles K7 read (its scope's list) against the live ones
-                _, n_tiles = topk.scope_tiles(mask, count)
-                out[scope + "_tiles"] = {"read": int(n_tiles.item()), "live": -(-count // 128)}
+            if name in ("topk_iv", "topk_mask", "topk_mq"):
+                # The tiles the listed scan read (its scope's list) against
+                # the live ones, and the listing kernel that made the list.
+                lister = "interval_tiles" if name == "topk_iv" else "scope_tiles"
+                n_tiles, list_ms = check_tile_list(lister, table_dev if lister == "interval_tiles" else mask,
+                                                   count, n_rows, f"{what} list")
+                out[scope + "_tiles"] = {"read": n_tiles, "live": -(-count // 128), "list_ms": list_ms}
             out[scope] = {"kernel": name, "intervals": n_iv, "max_abs_err": err,
                           "kernel_ms": ms, "plain_kernel_ms": plain_ms, "scope_rows": scope_rows,
                           "bound_ms": bound[0], "bound_by": bound[1],
@@ -1350,9 +1405,11 @@ def main() -> int:
         return out
 
     def ivf_lifecycle(s, n, topics, q_host):
-        """The counted main path of phase 9: serving through LookupBatcher
-        on the snapshot, 10% appended (the suffix rides K4 and its rows are
-        found), and a background rebuild that swaps in while serving."""
+        """The counted main paths of phase 9: serving through LookupBatcher
+        on the snapshot and 10% appended (the suffix rides K4, which reads
+        only the suffix's tiles, and its rows are found); then, counted
+        anew, a background rebuild that swaps in while serving. Between the
+        two, uncounted, the suffix lookup and its K4 scan are timed."""
         s.settings.ivf_b = 16
         topk.reset_launch_counts()
         served, stats = serve_batches(s, [q_host[i : i + 256] for i in range(0, IVF_QUERIES, 256)])
@@ -1361,9 +1418,31 @@ def main() -> int:
         probes = extra[:64].float().cpu().numpy()
         hits = s.fuzzy_lookup_embeddings_batch(probes, max_hits=K_MAIN)
         suffix_counts = topk.launch_counts()
+        add_path_launches(suffix_counts)
         require(suffix_counts["topk_iv"] > 0, f"ivf append: the suffix never ran K4 ({suffix_counts})")
         require(all(h[0].item == n + j and h[0].score >= 0.99 for j, h in enumerate(hits)),
                 f"ivf append: appended rows not found {[h[0].item for h in hits[:4]]}")
+        # The appended suffix [snapshot count, count): its tiles, K4 on it
+        # against its plain version, K4's time and the b=256 lookup's.
+        count, buf = s._count, s._buf
+        suffix_iv = torch.tensor([[s._ivf_count, count]], dtype=torch.int32, device=dev)
+        qd = padded_queries(q_host[:256], buf.shape[1])
+        err = check_scan(topk.fused_topk_iv(buf, qd, count, suffix_iv, K_MAIN),
+                         topk.topk_iv_plain(buf, qd, count, suffix_iv, K_MAIN), buf, None, qd, count,
+                         lambda idx: idx >= s._ivf_count, TOL_BF16, "K4 ivf suffix")
+        kernel_err["topk_iv"] = max(kernel_err["topk_iv"], err)
+        k4_ms, k4_plain_ms = in_turns(lambda fn: cuda_ms(fn, iters=5),
+                                      lambda: topk.fused_topk_iv(buf, qd, count, suffix_iv, K_MAIN),
+                                      lambda: topk.topk_iv_plain(buf, qd, count, suffix_iv, K_MAIN))
+        bound = scan_bound(count - s._ivf_count, buf.shape[1], buf.element_size(), 256, 256 * K_MAIN * 8,
+                           PEAK_F32 if buf.dtype == torch.float32 else PEAK_BF16)
+        suffix = {"rows": count - s._ivf_count,
+                  "tiles": {"read": int(topk.interval_tiles(suffix_iv, count, buf.shape[0])[1].item()),
+                            "live": -(-count // 128)},
+                  "k4_ms": k4_ms, "k4_plain_ms": k4_plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                  "ms_per_batch256": host_ms(
+                      lambda: s.fuzzy_lookup_embeddings_batch(q_host[:256], max_hits=K_MAIN), iters=5)}
+        topk.reset_launch_counts()
         t0 = time.perf_counter()
         thread = s.build_ivf_background(rows_per_cluster=512)
         during = s.fuzzy_lookup_embeddings_batch(probes, max_hits=K_MAIN)
@@ -1376,11 +1455,12 @@ def main() -> int:
         counts = topk.launch_counts()
         add_path_launches(counts)
         require(counts["topk_iv"] == iv_before, "ivf rebuild: the swapped snapshot still scans a suffix")
+        counts = {name: suffix_counts[name] + c for name, c in counts.items()}
         require(counts["rescore"] > 0 and counts["bucket_maxima"] > 0, f"ivf: route {counts}")
         for rows in (during, after):
             require(all(h[0].item == n + j for j, h in enumerate(rows)), "ivf rebuild: appended rows lost")
         return {"launches": counts, "batcher": stats, "served_queries": sum(len(b) for b in served),
-                "appended": n // 10, "rebuild_s": round(rebuild_s, 3)}
+                "appended": n // 10, "suffix": suffix, "rebuild_s": round(rebuild_s, 3)}
 
     out9 = {"phase": 9, "b": 256, "k": K_MAIN, "outlier_frac": 0.03, "rows_per_cluster": 512}
     for (n, topics), full in zip(IVF_SCALES, (True, False)):
@@ -1523,6 +1603,10 @@ def main() -> int:
         "topk_mq": ("csrc/topk.cu", "typeagent_tpu/ops/topk.py:757"),
         "bucket_maxima_q": ("csrc/bucket_maxima.cu", "typeagent_tpu/ops/topk.py:1233"),
         "bucket_maxima_q4": ("csrc/bucket_maxima.cu", "typeagent_tpu/ops/int4.py:215"),
+        # The listed scans' tile lists; the TPU kernels test each tile's
+        # rows after the product instead (K4's interval compares, K5's mask).
+        "interval_tiles": ("csrc/tile_list.cu", "typeagent_tpu/ops/topk.py:413"),
+        "scope_tiles": ("csrc/tile_list.cu", "typeagent_tpu/ops/topk.py:536"),
     }
     for entry, kernel in SHAPE_ENTRIES.items():
         sources[entry] = sources[kernel]

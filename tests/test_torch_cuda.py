@@ -19,9 +19,17 @@ from typeagent_tpu_torch.models.adapters import create_test_embedding_model
 from typeagent_tpu_torch.ops import int4, topk
 from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings, VectorStore
 
+from test_torch_scope_tiles import CASES as SCOPE_CASES
+from test_torch_scope_tiles import INTERVAL_CASES
+from test_torch_scope_tiles import _case as scope_case
+from test_torch_scope_tiles import _store_rows as store_rows
+
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 2e-6, torch.bfloat16: 1e-5}
+# The listed K4/K5 scope cases: f32 1e-6 (unit rows, 384 deep: the FFMA
+# and cuBLAS sums differ by a few ulps of 1.0), bf16 1e-5.
+SCOPE_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-5}
 
 
 @pytest.fixture
@@ -536,6 +544,166 @@ def test_fused_topk_mq_does_not_synchronize(dev):
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     cpu_tiles, cpu_n = topk.scope_tiles(mask.cpu(), count)
     assert torch.equal(tiles.cpu(), cpu_tiles) and torch.equal(n_tiles.cpu(), cpu_n)
+
+
+def _float_scope(name, edge):
+    """(row spans in scope, duplicates of row dupes[0]) of K4 and K5 over
+    the int8 scans' store shape; ``edge`` is the first row of K1's split 1
+    at the batch. Duplicates sit in listed tiles and in skipped ones."""
+    t = 128
+    return {
+        "empty": ([], [5, 6, 3 * t]),
+        # One listed tile (40); duplicates in it, past its span, and in the
+        # skipped tiles 2 and 41.
+        "one_tile": ([(40 * t + 3, 40 * t + 90)], [2 * t + 7, 40 * t + 3, 40 * t + 89, 40 * t + 100, 41 * t]),
+        # In-scope rows only in the last tile of one split and the first of
+        # the next; the two listed tiles fall to two CTAs.
+        "split_edge": ([(edge - 64, edge + 64)], [edge - 1, edge]),
+        # Listed tiles 3, 7-8, 20 and 200; duplicates in the skipped tiles
+        # 1, 11 and 150 too.
+        "gaps": ([(3 * t + 5, 3 * t + 60), (7 * t, 9 * t), (20 * t + 100, 20 * t + 101), (200 * t, 201 * t)],
+                 [t + 1, 3 * t + 10, 7 * t + 127, 8 * t, 11 * t + 64, 20 * t + 100, 150 * t, 200 * t + 1]),
+        "past_count": ([(_I8_COUNT, _I8_N)], [_I8_COUNT, _I8_COUNT + 1]),
+        "whole": ([(0, _I8_N)], [0, 127, edge, _I8_COUNT - 1, _I8_COUNT + 5]),
+    }[name]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scope", ["empty", "one_tile", "split_edge", "gaps", "past_count", "whole"])
+@pytest.mark.parametrize("b", [1, 8, 9, 16, 33, 64, 256])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_scoped_float_scans_read_listed_tiles(dev, dtype, scope, b, k):
+    """K4 (interval table) and K5 (row mask) read only the tiles their
+    scope lists, at every FFMA query block: each matches its plain version
+    and keeps ties at the lowest row across skipped tiles and list shares;
+    a scope with no live row gives only (-3, -1)."""
+    edge, _ = topk.scan_geometry(_I8_COUNT, _I8_N, b, topk._sm_count(0), topk.topk_query_block(b))
+    spans, dupes = _float_scope(scope, edge)
+    dupes = sorted(set(dupes))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    m = torch.nn.functional.normalize(torch.randn((_I8_N, 384), generator=gen, device=dev), dim=1)
+    m[dupes] = m[dupes[0]].clone()
+    emb = m.to(dtype)
+    q = torch.nn.functional.normalize(torch.randn((b, 384), generator=gen, device=dev), dim=1)
+    q[0] = m[dupes[0]]
+    table = torch.tensor(spans, dtype=torch.int32, device=dev).reshape(-1, 2)
+    mask = torch.zeros(_I8_N, dtype=torch.int32, device=dev)
+    for lo, hi in spans:
+        mask[lo:hi] = 1
+    topk.reset_launch_counts()
+    got_iv = topk.fused_topk_iv(emb, q, _I8_COUNT, table, k)
+    got_m = topk.fused_topk_masked(emb, q, _I8_COUNT, mask, k)
+    ref = topk.topk_iv_plain(emb, q, _I8_COUNT, table, k)
+    torch.cuda.synchronize()
+    counts = topk.launch_counts()
+    assert counts["topk_iv"] == 1 and counts["topk_mask"] == 1
+    assert counts["interval_tiles"] == 1 and counts["scope_tiles"] == 1
+    raw = topk._raw_scores(emb, q, _I8_COUNT).masked_fill(~(mask > 0), -3.0)
+    want = [r for r in dupes if r < _I8_COUNT and mask[r].item() > 0][:k]
+    for got in (got_iv, got_m):
+        _check_scan(got, ref, raw, SCOPE_TOL[dtype])
+        assert got[1][0, : len(want)].tolist() == want
+        if not want:
+            assert bool((got[0] == -3.0).all()) and bool((got[1] == -1).all())
+
+
+def test_scoped_float_scans_do_not_synchronize(dev):
+    """K4 lists its tiles from the interval table and K5 from the mask on
+    the device: neither waits on the host."""
+    rng = np.random.default_rng(34)
+    emb, q, count, _ = _scoped_case(dev, torch.float32, rng)
+    table = torch.tensor([[100, 2048], [5000, 5100], [0, 0]], dtype=torch.int32, device=dev)
+    mask = topk.intervals_to_rowmask(emb.shape[0], table)[0].contiguous()
+    ref_iv = topk.fused_topk_iv(emb, q, count, table, 10)  # builds the kernels first
+    ref_m = topk.fused_topk_masked(emb, q, count, mask, 10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_iv = topk.fused_topk_iv(emb, q, count, table, 10)
+        got_m = topk.fused_topk_masked(emb, q, count, mask, 10)
+        tiles, n_tiles = topk.interval_tiles(table, count, emb.shape[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for got, ref in ((got_iv, ref_iv), (got_m, ref_m)):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(got_iv[1], got_m[1])
+    cpu_tiles, cpu_n = topk.interval_tiles(table.cpu(), count, emb.shape[0])
+    assert torch.equal(tiles.cpu(), cpu_tiles) and torch.equal(n_tiles.cpu(), cpu_n)
+
+
+@pytest.mark.parametrize("case", SCOPE_CASES)
+def test_scope_tiles_kernel_matches_plain(dev, case):
+    """csrc/tile_list.cu's row-mask list is its plain version's, entry for
+    entry: counts inside a tile, past the count, signed entries, a dead
+    store, the corpus layouts."""
+    mask, count = scope_case(case)
+    m = torch.from_numpy(mask)
+    topk.reset_launch_counts()
+    got = topk.scope_tiles(m.to(dev), count)
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["scope_tiles"] == 1
+    want = topk.scope_tiles_plain(m, count)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("case", sorted(INTERVAL_CASES))
+def test_interval_tiles_kernel_matches_plain(dev, case):
+    """csrc/tile_list.cu's list from an interval table is its plain
+    version's: padding, overlapping and unsorted rows, empty spans, spans
+    past the count, the corpus layouts and an IVF suffix."""
+    table, count = INTERVAL_CASES[case]
+    iv = torch.tensor(table, dtype=torch.int32).reshape(-1, 2)
+    topk.reset_launch_counts()
+    got = topk.interval_tiles(iv.to(dev), count, store_rows(count))
+    torch.cuda.synchronize()
+    assert topk.launch_counts()["interval_tiles"] == 1
+    want = topk.interval_tiles_plain(iv, count, store_rows(count))
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("convs", [(0,), (0, 2)])
+def test_tile_lists_of_a_30m_row_corpus(dev, convs):
+    """The int8 corpus's layout at full size (234,375 live tiles, over 200
+    per thread of the one-CTA compaction): both kernels give the plain
+    lists, from the row mask and from the merged interval table."""
+    n_rows, seg = 30_000_000, 1_250_000
+    table = []
+    for i in range(24):
+        if i % 3 in convs:
+            if table and table[-1][1] == i * seg:
+                table[-1][1] = (i + 1) * seg
+            else:
+                table.append([i * seg, (i + 1) * seg])
+    iv = torch.tensor(table, dtype=torch.int32, device=dev)
+    mask = topk.intervals_to_rowmask(n_rows, iv)[0].contiguous()
+    count = n_rows - 77
+    from_mask, from_table = topk.scope_tiles(mask, count), topk.interval_tiles(iv, count, n_rows)
+    want = topk.scope_tiles_plain(mask, count)
+    for got in (from_mask, from_table, topk.interval_tiles_plain(iv, count, n_rows)):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert 0 < want[1].item() < -(-count // 128)
+
+
+def test_scope_tiles_kernel_reads_an_unaligned_mask(dev):
+    """A mask that starts 4 bytes into its storage takes the kernel's
+    row-by-row reads; the list is the plain version's."""
+    mask, count = scope_case("random_sparse")
+    backing = torch.zeros(mask.size + 1, dtype=torch.int32, device=dev)
+    backing[1:] = torch.from_numpy(mask).to(dev)
+    got = topk.scope_tiles(backing[1:], count)
+    want = topk.scope_tiles_plain(torch.from_numpy(mask), count)
+    assert backing[1:].data_ptr() % 16 and want[1].item() > 0
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_scope_tiles_kernel_refuses_other_masks(dev):
+    with pytest.raises(ValueError):
+        topk.scope_tiles(torch.ones(1024, dtype=torch.int64, device=dev), 1000)
+    with pytest.raises(ValueError):
+        topk.scope_tiles(torch.ones(2048, dtype=torch.int32, device=dev)[::2], 1000)
+    with pytest.raises(ValueError):
+        topk.interval_tiles(torch.ones((3, 2), dtype=torch.int64, device=dev), 1000, 1024)
 
 
 def test_scoped_routes_count_their_kernels(dev):

@@ -175,6 +175,69 @@ def test_ties_go_to_the_lowest_row_across_interval_edges(rng):
     assert idx[0].tolist() == [100, 640]
 
 
+def _listed_walk(emb, q, count, tiles, n_tiles, in_scope, k, splits):
+    """The listed scans' walk (K4, K5) in plain torch: CTA ``s`` of
+    ``splits`` scores only the rows of its share of the tile list
+    (``scope_share``), offers rows past the count or out of scope as -3,
+    keeps its top-k with ties at the lowest row, and the merge folds the
+    CTAs' lists in split order (a stable sort), as ``csrc/topk.cu`` does."""
+    n = int(n_tiles.item())
+    parts_v, parts_i = [], []
+    for s in range(splits):
+        first, last = topk.scope_share(n, splits, s)
+        rows = (tiles[first:last, None].long() * 128 + torch.arange(128)).reshape(-1)
+        raw = q.to(emb.dtype).float() @ emb[rows].float().T
+        raw = torch.where(((rows < count) & in_scope[rows])[None, :], raw, -3.0)
+        v, p = topk._select_topk(raw, min(k, rows.shape[0]))
+        parts_v.append(v)
+        parts_i.append(rows[p])
+    vals = torch.cat(parts_v + [torch.full((q.shape[0], k), -3.0)], dim=1)
+    idx = torch.cat(parts_i + [torch.full((q.shape[0], k), -1)], dim=1)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices[:, :k]
+    return topk._raw_to_score(vals.gather(1, order), idx.gather(1, order))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", ["intervals", "mask"])
+@pytest.mark.parametrize("splits", [1, 3, 16])
+def test_listed_walk_matches_jax_with_duplicates_in_skipped_tiles(rng, dtype, route, splits):
+    """Duplicates of query 0's row sit in listed tiles (in and out of the
+    scope) and in tiles the list skips. The JAX routes, the port's routes
+    and a walk over the listed tiles alone (K4's list from the table, K5's
+    from the row mask) agree, and query 0's top-k holds the in-scope
+    duplicates in ascending rows."""
+    m, q, count = _case(rng, dtype)
+    table = np.asarray([[130, 200], [640, 900], [1800, 1900], [0, 0]], dtype=np.int32)
+    # Tiles 1, 5-7 and 14 are listed. Duplicates in skipped tiles: 5 (tile
+    # 0), 400 (3), 1300 (10), 1949 (15); in a listed tile out of scope: 250
+    # (1); past the count: 1960.
+    dupes = [5, 140, 199, 250, 400, 640, 899, 1300, 1850, 1949, 1960]
+    m[dupes] = m[dupes[0]]
+    if dtype == "bfloat16":
+        m = _bf16_round(m)
+    q[0] = m[dupes[0]]
+    jemb, temb = _stores(m, dtype)
+    tq, ttable = torch.from_numpy(q), torch.from_numpy(table)
+    mask = topk.intervals_to_rowmask(m.shape[0], ttable)[0]
+    if route == "intervals":
+        jv, ji = jtopk.topk_program_intervals(
+            jemb, jnp.asarray(q), jnp.int32(count), jnp.asarray(table), 10, use_pallas=False)
+        tv, ti = topk.topk_program_intervals(temb, tq, count, ttable, 10)
+        tiles, n_tiles = topk.interval_tiles(ttable, count, m.shape[0])
+    else:
+        jv, ji = jtopk.topk_program_masked(
+            jemb, jnp.asarray(q), jnp.int32(count), jnp.asarray(mask.numpy()), 10, use_pallas=False)
+        tv, ti = topk.topk_program_masked(temb, tq, count, mask, 10)
+        tiles, n_tiles = topk.scope_tiles(mask, count)
+    assert tiles[: n_tiles.item()].tolist() == [1, 5, 6, 7, 14]
+    wv, wi = _listed_walk(temb, tq, count, tiles, n_tiles, mask > 0, 10, splits)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert_topk_equivalent(tv, ti, jv, ji, tol)
+    assert_topk_equivalent(wv, wi, jv, ji, tol)
+    want = [140, 199, 640, 899, 1850]
+    assert ti[0, :5].tolist() == want and wi[0, :5].tolist() == want
+
+
 def test_count_watermark_inside_an_interval(rng):
     m, q, _ = _case(rng, "float32")
     table = torch.tensor([[1000, 1100]], dtype=torch.int32)

@@ -23,17 +23,30 @@ is no CPU mode.
 
 Cases (1M x 384 unit rows unless named, k = 10): K1 f32 at b = 256, 16 and
 8, and at 100k rows at b = 256 and 8; K2 over the bf16 shadow at b = 256
-and 8; K2' f32 and bf16 at b = 256; K3 (unchanged, a control); K4 (8
-intervals), K5 (a row mask), K6 and K7 over int8 rows at b = 64; K6 also
-at b = 8, 16 and 256, and K7 over a one-third scope of 8 interleaved
-segments (one conversation of the corpus layout below); K8 and K9 at b =
-256; the IVF program over the rows in bf16 (B = 16, a 3% outlier tail),
-its tail and the tail's K2; the batch-256 lookup of a 1M f32 store (hybrid
-exact2: K2 + K3) and of a 100k store (K1). Then the int8 corpus of
-chip_smoke.py phase 7, a CorpusVectorStore of 30,000,000 x 384 int8 rows
-in 24 segments of 1,250,000 over three conversations, b = 64: K6 (global)
-and K7 scoped to one conversation (8 segments) and to two (16), and the
-corpus's own search (host clock), global and for one conversation.
+and 8, and over the f32 rows at b = 256; K2' f32 and bf16 at b = 256; K3
+(unchanged, a control); K4 (8 intervals), K5 (a row mask), K6 and K7 over
+int8 rows at b = 64; K4 at b = 256 over a one-interval suffix of the last
+100,000 rows (the IVF append path's scan; --only suffix); K6 also at b =
+8, 16 and 256, and K7 over a one-third scope of 8 interleaved segments
+(one conversation of the corpus layout below); K8 and K9 at b = 256; the
+IVF program over the rows in bf16 (B = 16, a 3% outlier tail), its tail
+and the tail's K2; the batch-256 lookup of a 1M f32 store (hybrid exact2:
+K2 + K3) and of a 100k store (K1); scoped searches of a 100k-row store
+at b = 8 (host clock) over 8 intervals, the whole store and a 1% subset
+(--only scoped); the batch-256 lookup of an IVF snapshot of 900k bf16
+rows with 100k appended (the suffix scan, --only appended). Then the f32 corpus of chip_smoke.py
+phase 6 (--only f32-corpus), a CorpusVectorStore of 9,984,000 x 384 f32
+rows in 24 segments of 416,000 over three conversations, b = 64: K1
+(global), K4 scoped to one conversation (8 intervals), K5 to two (9
+intervals, a row mask), and the corpus's own search (host clock), global
+and for one conversation. Then the int8 corpus of chip_smoke.py phase 7,
+30,000,000 x 384 int8 rows in 24 segments of 1,250,000 in the same layout:
+K6 (global) and K7 scoped to one conversation (8 segments) and to two
+(16), and the corpus's own search, global and for one conversation. In a
+tree that lists tiles with a kernel, each scoped corpus case also times
+its tile list alone (``interval_tiles ...``, ``scope_tiles ...``); the
+last line gives such a case's time with no base where the base tree
+lacks it.
 """
 
 from __future__ import annotations
@@ -48,8 +61,9 @@ import time
 
 SEED = 20261016
 N, D, K = 1_000_000, 384, 10
-# chip_smoke.py phase 7's corpus: 24 segments of 1,250,000 int8 rows, segment
-# i in conversation CORPUS_NAMES[i % 3].
+# chip_smoke.py phase 6's and 7's corpora: 24 segments of 416,000 f32 or
+# 1,250,000 int8 rows, segment i in conversation CORPUS_NAMES[i % 3].
+CORPUS_F32_SEG_ROWS = 416_000
 CORPUS_SEG_ROWS, CORPUS_SEGMENTS = 1_250_000, 24
 CORPUS_NAMES = ("podcast", "mailbox", "wiki")
 
@@ -109,6 +123,7 @@ def digest(result) -> str | None:
 
 
 def child(root: str, profiled: list[str], only: list[str]) -> dict:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -116,6 +131,7 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     from typeagent_tpu_torch.models.adapters import create_test_embedding_model
     from typeagent_tpu_torch.ops import _build, int4, ivf, topk
+    from typeagent_tpu_torch.parallel import ShardedVectorStore
     from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings, VectorStore
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -138,6 +154,7 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
     ids = torch.topk(topk.bucket_maxima(shadow, q256, N), K + 14, dim=1).indices.to(torch.int32).contiguous()
     iv = torch.tensor([[i * 125_000, i * 125_000 + 62_500] for i in range(8)], dtype=torch.int32, device=dev)
     mask = topk.intervals_to_rowmask(n_pad, iv)[0].contiguous()
+    suffix = torch.tensor([[N - 100_000, N]], dtype=torch.int32, device=dev)
     q64 = q256[:64].contiguous()
     # One conversation of three in 24 interleaved segments: 8 segments, a
     # third of the rows.
@@ -156,8 +173,12 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
         return start.elapsed_time(end) / iters
 
     def host_ms(fn, iters=10):
+        """Mean host time of a synchronised call, over at least ``iters``
+        calls and about 100 ms (short calls vary most from call to call)."""
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        iters = min(200, max(iters, int(0.1 / max(time.perf_counter() - t0, 1e-6))))
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
@@ -186,11 +207,13 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
         "K1 f32 100k b8": lambda: topk.fused_topk(rows, q256[:8], 100_000, K),
         "K2 bf16 1M b256": lambda: topk.bucket_maxima(shadow, q256, N),
         "K2 bf16 1M b8": lambda: topk.bucket_maxima(shadow, q256[:8], N),
+        "K2 f32 1M b256": lambda: topk.bucket_maxima(rows, q256, N),
         "K2' f32 1M b256": lambda: topk.bucket_argmax(rows, q256, N),
         "K2' bf16 1M b256": lambda: topk.bucket_argmax(shadow, q256, N),
         "K3 f32 1M b256 B24": lambda: topk.rescore_selected(rows, q256, ids),
         "K4 f32 1M b64 8 intervals": lambda: topk.fused_topk_iv(rows, q64, N, iv, K),
         "K5 f32 1M b64 mask": lambda: topk.fused_topk_masked(rows, q64, N, mask, K),
+        "K4 f32 1M b256 one-interval suffix": lambda: topk.fused_topk_iv(rows, q256, N, suffix, K),
         "K6 int8 1M b8": lambda: topk.fused_topk_q(emb_q, scales, q256[:8], N, K),
         "K6 int8 1M b16": lambda: topk.fused_topk_q(emb_q, scales, q256[:16], N, K),
         "K6 int8 1M b64": lambda: topk.fused_topk_q(emb_q, scales, q64, N, K),
@@ -205,8 +228,81 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
     }
     cases["lookup 1M f32 b256 (host)"] = lambda: big.fuzzy_lookup_embeddings_batch(q_host, max_hits=K)
     cases["lookup 100k f32 b256 (host)"] = lambda: small.fuzzy_lookup_embeddings_batch(q_host, max_hits=K)
+    # Scoped searches where the scan is short beside the host's work: a
+    # 100k-row store at b = 8 over 8 intervals (K4), the whole store as one
+    # interval (K4, every tile listed) and a 1% subset (a row mask, K5).
+    scoped = ShardedVectorStore(D, device="cuda")
+    scoped.append_device(rows[:100_000])
+    iv100k = np.array([[i * 12_500, i * 12_500 + 6_250] for i in range(8)], np.int32)
+    whole = np.array([[0, 100_000]], np.int32)
+    subset = np.random.default_rng(SEED).choice(100_000, 1_000, replace=False)
+    q8_host = q_host[:8]
+    cases["scoped search 100k f32 b8 8 intervals (host)"] = lambda: scoped.search_intervals(q8_host, iv100k, K)
+    cases["scoped search 100k f32 b8 whole store (host)"] = lambda: scoped.search_intervals(q8_host, whole, K)
+    cases["scoped search 100k f32 b8 1% subset (host)"] = lambda: scoped.search_subset(q8_host, subset, K)
+    # chip_smoke.py phase 9's append path at this size: an IVF snapshot of
+    # 900k bf16 rows and 100k appended, whose lookup scans the suffix with K4.
+    appended = store(N - 100_000, dtype="bfloat16", search_mode="ivf")
+    appended.settings.ivf_outlier_frac = 0.03
+    appended.build_ivf(rows_per_cluster=512)
+    appended.load_device_rows(rows[N - 100_000 : N])
+    cases["lookup IVF 900k + 100k appended bf16 b256 (host)"] = (
+        lambda: appended.fuzzy_lookup_embeddings_batch(q_host, max_hits=K))
     cases = {name: fn for name, fn in cases.items() if wanted(name)}
     out = {name: (host_ms if name.endswith("(host)") else cuda_ms)(fn) for name, fn in cases.items()}
+
+    def make_corpus(dtype, seg_rows):
+        from typeagent_tpu_torch.parallel import CorpusVectorStore
+
+        corpus = CorpusVectorStore(D, device="cuda", dtype=dtype)
+        corpus.reserve(seg_rows * CORPUS_SEGMENTS)
+        for seg in range(CORPUS_SEGMENTS):
+            for done in range(0, seg_rows, 500_000):
+                corpus.append_device(CORPUS_NAMES[seg % 3], unit(min(500_000, seg_rows - done)))
+        return corpus
+
+    q64_host = q64.cpu().numpy()
+
+    def add_list_case(name, fn):
+        """The tile list of a scoped corpus case alone, in trees that list
+        with a kernel (``csrc/tile_list.cu``); others lack the case."""
+        if hasattr(topk, "interval_tiles_plain"):
+            out[name] = cuda_ms(fn, iters=20)
+            cases[name] = fn
+
+    f32_cases = {
+        "K1 f32-corpus 10M b64 global": None,
+        "K4 f32-corpus 10M b64 one conversation": ("podcast",),
+        "K5 f32-corpus 10M b64 two conversations": ("podcast", "wiki"),
+        "search f32-corpus 10M b64 global (host)": None,
+        "search f32-corpus 10M b64 one conversation (host)": ("podcast",),
+    }
+    f32_cases = {name: convs for name, convs in f32_cases.items() if wanted(name)}
+    if f32_cases:
+        corpus = make_corpus("float32", CORPUS_F32_SEG_ROWS)
+        emb10, n10 = corpus._store.buf, corpus._store.count
+        for name, convs in f32_cases.items():
+            if name.endswith("(host)"):
+                fn = lambda convs=convs: corpus.search(q64_host, k=K, conversations=convs)  # noqa: E731
+                out[name] = host_ms(fn, iters=5)
+            else:
+                if convs is None:
+                    fn = lambda: topk.fused_topk(emb10, q64, n10, K)  # noqa: E731
+                elif len(convs) == 1:
+                    # One conversation: its 8 segments, the corpus's 8-row interval table.
+                    table = torch.zeros((8, 2), dtype=torch.int32)
+                    spans = corpus._segment_intervals(set(convs))
+                    table[: len(spans)] = torch.from_numpy(spans)
+                    fn = lambda table=table.to(dev): topk.fused_topk_iv(emb10, q64, n10, table, K)  # noqa: E731
+                    add_list_case("interval_tiles " + name[3:],
+                                  lambda t=table.to(dev): topk.interval_tiles(t, n10, emb10.shape[0]))
+                else:
+                    m10 = conversation_mask(emb10.shape[0], CORPUS_F32_SEG_ROWS,
+                                            tuple(CORPUS_NAMES.index(c) for c in convs))
+                    fn = lambda m10=m10: topk.fused_topk_masked(emb10, q64, n10, m10, K)  # noqa: E731
+                    add_list_case("scope_tiles " + name[3:], lambda m10=m10: topk.scope_tiles(m10, n10))
+                out[name] = cuda_ms(fn, iters=5)
+            cases[name] = fn
     corpus_cases = {
         "K6 int8 30M b64": None,
         "K7 int8 30M b64 one conversation": ("podcast",),
@@ -216,18 +312,11 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
     }
     corpus_cases = {name: convs for name, convs in corpus_cases.items() if wanted(name)}
     if corpus_cases:
-        from typeagent_tpu_torch.parallel import CorpusVectorStore
-
-        corpus = CorpusVectorStore(D, device="cuda", dtype="int8")
-        corpus.reserve(CORPUS_SEG_ROWS * CORPUS_SEGMENTS)
-        for seg in range(CORPUS_SEGMENTS):
-            for done in range(0, CORPUS_SEG_ROWS, 500_000):
-                corpus.append_device(CORPUS_NAMES[seg % 3], unit(min(500_000, CORPUS_SEG_ROWS - done)))
-        codes, sc30, n30 = corpus._store.buf, corpus._store._scales, corpus._store.count
-        q64_host = q64.cpu().numpy()
+        corpus8 = make_corpus("int8", CORPUS_SEG_ROWS)
+        codes, sc30, n30 = corpus8._store.buf, corpus8._store._scales, corpus8._store.count
         for name, convs in corpus_cases.items():
             if name.endswith("(host)"):
-                fn = lambda convs=convs: corpus.search(q64_host, k=K, conversations=convs)  # noqa: E731
+                fn = lambda convs=convs: corpus8.search(q64_host, k=K, conversations=convs)  # noqa: E731
                 out[name] = host_ms(fn, iters=5)
             else:
                 if convs is None:
@@ -236,6 +325,7 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
                     m30 = conversation_mask(codes.shape[0], CORPUS_SEG_ROWS,
                                             tuple(CORPUS_NAMES.index(c) for c in convs))
                     fn = lambda m30=m30: topk.fused_topk_mq(codes, sc30, q64, n30, m30, K)  # noqa: E731
+                    add_list_case("scope_tiles " + name[3:], lambda m30=m30: topk.scope_tiles(m30, n30))
                 out[name] = cuda_ms(fn, iters=5)
             cases[name] = fn
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -270,9 +360,12 @@ def main() -> int:
         print(line, flush=True)
         runs.append(json.loads(line))
     summary = {}
-    for name in runs[0]["ms"]:
-        base = [runs[0]["ms"][name], runs[3]["ms"][name]]
+    for name in runs[1]["ms"]:
         change = [runs[1]["ms"][name], runs[2]["ms"][name]]
+        if name not in runs[0]["ms"]:  # a case the base tree lacks
+            summary[name] = {"change_ms": sum(change) / 2, "change_runs": change}
+            continue
+        base = [runs[0]["ms"][name], runs[3]["ms"][name]]
         summary[name] = {"base_ms": sum(base) / 2, "change_ms": sum(change) / 2,
                          "base_runs": base, "change_runs": change,
                          "ratio": (sum(change) / 2) / (sum(base) / 2),

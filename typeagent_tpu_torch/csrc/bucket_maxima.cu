@@ -117,8 +117,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
-  scan_tiles<float, TQ>(emb, q, n_rows, d_pad, b, g.q0, g.t_begin, g.t_end, smem,
-                        [&](int64_t r0, const float* S) {
+  scan_tiles<float, TQ>(emb, q, n_rows, d_pad, b, g.q0, (int)(g.t_end - g.t_begin),
+                        TileRange{g.t_begin}, smem, [&](int64_t r0, const float* S) {
 #pragma unroll
     for (int i = 0; i < TQ; ++i) {
       const int ql = warp * TQ + i;

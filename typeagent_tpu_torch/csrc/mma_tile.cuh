@@ -190,22 +190,6 @@ struct RowsI4 {
   };
 };
 
-// The tiles a CTA walks, in ascending order: tile j of a contiguous range
-// is first + j (K2, K2', K6, K8, K9), of a list the index at position
-// first + j of `tiles` in device memory (K7). The loop walks a range with
-// incremental counters and reads a list's next index a tile ahead.
-struct TileRange {
-  static constexpr bool LISTED = false;
-  int64_t first;
-  __device__ __forceinline__ int64_t operator()(int j) const { return first + j; }
-};
-struct TileList {
-  static constexpr bool LISTED = true;
-  const int* tiles;
-  int64_t first;
-  __device__ __forceinline__ int64_t operator()(int j) const { return tiles[first + j]; }
-};
-
 // Shared memory of the loop, at the address it is given (a kernel keeps
 // its epilogue's tables in front of it): the resident query block
 // [MMA_QB][qw + 8] (RESIDENT only), then Rows::STAGES ring slots, each a
@@ -222,7 +206,8 @@ struct MmaLoopSmem {
 
 // The CTA's query block q0 .. q0 + 63 (q: [b, width] bf16, or the split
 // halves [b, 2 * width] for packed int4 rows) against the n_tiles 128-row
-// tiles tile_at(0) < tile_at(1) < ... (a TileRange or a TileList) of emb
+// tiles tile_at(0) < tile_at(1) < ... (a TileRange or a TileList of
+// tile.cuh; the loop walks a range with incremental counters) of emb
 // ([n_rows, width] elements of Rows::T). After the last strip of tile j
 // every thread calls epi(tile_at(j), acc), then the accumulators restart
 // from zero. acc[m][n]

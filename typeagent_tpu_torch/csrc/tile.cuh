@@ -1,8 +1,11 @@
 // Shared pieces of the cosine top-k kernels: the FFMA score tile that the
 // f32 and bf16 top-k scans (topk.cu: K1, K4, K5) and the f32 bucket kernels
-// (bucket_maxima.cu: K2 and K2' on f32 stores) run over a range of 128-row
-// tiles, the warp-held sorted top-k list that the scan and merge passes
-// share, and the cp.async helpers of every staged kernel.
+// (bucket_maxima.cu: K2 and K2' on f32 stores) run over a sequence of
+// 128-row tiles (a contiguous range, or for the scoped scans K4 and K5 a
+// list of the tiles a scope touches), the tile accessors that this loop and
+// the tensor-core loop of mma_tile.cuh share, the warp-held sorted top-k
+// list that the scan and merge passes share, and the cp.async helpers of
+// every staged kernel.
 //
 // The tile is a plain FP32 FFMA product (no TF32, no tensor cores): the JAX
 // kernels score f32 stores at Precision.HIGHEST, and the products of a bf16
@@ -82,6 +85,27 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// The tiles a CTA walks
+// ---------------------------------------------------------------------------
+
+// The tiles a CTA walks, in ascending order: tile j of a contiguous range
+// is first + j (K1, K2, K2', K6, K8, K9), of a list the index at position
+// first + j of `tiles` in device memory (K4, K5, K7). The loops walk a range
+// as before and read a list's next index a tile ahead, so that it is in
+// hand when the ring starts the next tile's loads.
+struct TileRange {
+  static constexpr bool LISTED = false;
+  int64_t first;
+  __device__ __forceinline__ int64_t operator()(int64_t j) const { return first + j; }
+};
+struct TileList {
+  static constexpr bool LISTED = true;
+  const int* tiles;
+  int64_t first;
+  __device__ __forceinline__ int64_t operator()(int64_t j) const { return tiles[first + j]; }
+};
 
 // ---------------------------------------------------------------------------
 // The FFMA tile
@@ -188,16 +212,22 @@ struct ChunkStager<float, TQ> {
   __device__ __forceinline__ void put(float*) const {}
 };
 
-// Scores query block q0 against tiles [t_begin, t_end) of 128 rows. After
-// each tile the [QB x 128] block sits in shared memory at S[query * SP +
-// row] and every thread calls epi(r0, S); the block stays valid until the
-// next tile's epilogue. Must be called by all THREADS threads of the CTA
-// with FfmaTile<TQ>::SMEM_BYTES of dynamic shared memory at `smem`.
-template <typename T, int TQ, typename Epilogue>
+// Scores query block q0 against the n_tiles 128-row tiles tile_at(0) <
+// tile_at(1) < ... (a TileRange or a TileList). After each tile the [QB x
+// 128] block sits in shared memory at S[query * SP + row] and every thread
+// calls epi(r0, S) with the tile's first row r0; the block stays valid
+// until the next tile's epilogue. Must be called by all THREADS threads of
+// the CTA with FfmaTile<TQ>::SMEM_BYTES of dynamic shared memory at `smem`.
+//
+// The ring fetches chunk s+1 while chunk s is multiplied, so at a tile's
+// last chunk it fetches the next tile's first one. A range computes each
+// chunk's tile from s; a list keeps the tile being multiplied (c_r0) and
+// the next listed one (n_r0), read from the list a tile ahead.
+template <typename T, int TQ, typename Tiles, typename Epilogue>
 __device__ __forceinline__ void scan_tiles(const T* __restrict__ emb,
                                            const float* __restrict__ q, int64_t n_rows,
-                                           int d_pad, int b, int q0, int64_t t_begin,
-                                           int64_t t_end, float* smem, Epilogue&& epi) {
+                                           int d_pad, int b, int q0, int n_tiles, Tiles tile_at,
+                                           float* smem, Epilogue&& epi) {
   using Tile = FfmaTile<TQ>;
   float* const S = smem + 2 * Tile::SLOT;
   const int lane = threadIdx.x & 31;
@@ -205,15 +235,21 @@ __device__ __forceinline__ void scan_tiles(const T* __restrict__ emb,
   const int qrow = (warp >> 2) * 4 * TQ + (lane >> 3);  // + 4*i
   const int rrow = (warp & 3) * 32 + (lane & 7);        // + 8*j
   const int chunks = d_pad / KC;
-  const int64_t steps = (t_end - t_begin) * chunks;
+  const int64_t steps = (int64_t)n_tiles * chunks;
   if (steps <= 0) return;
 
   ChunkStager<T, TQ> st;
-  auto fetch = [&](int64_t s) {
+  auto fetch = [&](int64_t s, int64_t r0, int d0) {
     if constexpr (std::is_same<T, float>::value) st.slot = smem + (s & 1) * Tile::SLOT;
-    st.fetch(emb, q, n_rows, d_pad, b, q0, (t_begin + s / chunks) * RB, (int)(s % chunks) * KC);
+    st.fetch(emb, q, n_rows, d_pad, b, q0, r0, d0);
   };
-  fetch(0);
+  // The first tile's first row; a list then keeps it as the tile being
+  // multiplied, with its chunk and position and the next listed tile's
+  // first row.
+  int64_t c_r0 = tile_at(0) * RB;
+  int64_t n_r0 = Tiles::LISTED && n_tiles > 1 ? tile_at(1) * RB : 0;
+  int c_chunk = 0, c_tile = 0;
+  fetch(0, c_r0, 0);
   st.put(smem);
   cp_async_commit();
 
@@ -227,7 +263,14 @@ __device__ __forceinline__ void scan_tiles(const T* __restrict__ emb,
     cp_async_wait<0>();
     __syncthreads();  // chunk s is in its slot; the other slot is free
     const bool more = s + 1 < steps;
-    if (more) fetch(s + 1);
+    if (more) {
+      if constexpr (Tiles::LISTED) {
+        const bool next_tile = c_chunk + 1 == chunks;
+        fetch(s + 1, next_tile ? n_r0 : c_r0, next_tile ? 0 : (c_chunk + 1) * KC);
+      } else {
+        fetch(s + 1, tile_at((s + 1) / chunks) * RB, (int)((s + 1) % chunks) * KC);
+      }
+    }
     cp_async_commit();
 
     const float* slot = smem + (s & 1) * Tile::SLOT;
@@ -252,7 +295,14 @@ __device__ __forceinline__ void scan_tiles(const T* __restrict__ emb,
     }
     if (more) st.put(smem + ((s + 1) & 1) * Tile::SLOT);
 
-    if (s % chunks == chunks - 1) {  // uniform: the tile is done
+    bool done;  // uniform: the tile is done
+    if constexpr (Tiles::LISTED) {
+      done = c_chunk + 1 == chunks;
+      c_chunk = done ? 0 : c_chunk + 1;
+    } else {
+      done = s % chunks == chunks - 1;
+    }
+    if (done) {
 #pragma unroll
       for (int i = 0; i < TQ; ++i)
 #pragma unroll
@@ -261,7 +311,14 @@ __device__ __forceinline__ void scan_tiles(const T* __restrict__ emb,
           acc[i][j] = 0.0f;
         }
       __syncthreads();
-      epi((t_begin + s / chunks) * RB, (const float*)S);
+      if constexpr (Tiles::LISTED) {
+        epi(c_r0, (const float*)S);
+        ++c_tile;
+        c_r0 = n_r0;
+        if (c_tile + 1 < n_tiles) n_r0 = tile_at(c_tile + 1) * RB;
+      } else {
+        epi(tile_at(s / chunks) * RB, (const float*)S);
+      }
     }
   }
 }

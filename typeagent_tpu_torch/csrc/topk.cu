@@ -47,15 +47,19 @@
 //   whole block beside the resident queries and the two-slot ring would
 //   need 121,856 bytes at d = 384, past the 115,712 that let two CTAs
 //   share an SM. Wider rows stream their query strips and fold in one
-//   pass. K7's CTAs walk only the tiles that hold an in-scope row: the
-//   wrapper lists them on the device (ops/topk.py scope_tiles, no host
+//   pass. The scoped scans' CTAs (K4, K5, K7) walk only the tiles that
+//   hold an in-scope row: the wrapper lists them on the device (ops/topk.py
+//   interval_tiles from K4's table, scope_tiles from a row mask; no host
 //   synchronisation) and each CTA takes a contiguous share of the list
 //   (scope_share), so a one-conversation scope reads a third of the store.
+//   The grid stays the unscoped scan's (fixed from the count, before the
+//   list's length is known); a CTA whose share is empty writes (-3, -1).
 //
 // Filters and scales: a row at or past `count`, or outside the scope, is
-//   offered as RAW_NEG and never enters a list. The interval table (K4) is
-//   copied to shared memory once per CTA; the mask (K5, K7) is read by the
-//   thread that owns the row. An int8 row's scale multiplies its f32 dot
+//   offered as RAW_NEG and never enters a list (a listed tile may hold
+//   such rows beside in-scope ones). The interval table (K4) is copied to
+//   shared memory once per CTA; the mask (K5, K7) is read by the thread
+//   that owns the row. An int8 row's scale multiplies its f32 dot
 //   afterwards, before the mask, as the JAX kernel does (raw * s_ref, then
 //   ok), never the row before the dot.
 
@@ -71,14 +75,23 @@ struct ScanExtras {
   const int* intervals;    // kIntervals: [n_intervals, 2] half-open spans
   int n_intervals;
   const int* mask;         // kMask: [n_rows], > 0 = searchable
+  const int* tiles;        // filtered scans: the ascending listed tiles
+  const int* n_tiles;      // and a device int holding how many
 };
 
+// CTA (query block blockIdx % n_qb, split blockIdx / n_qb). K1 (no
+// filter): split i walks tiles [i*per, (i+1)*per) below the live count,
+// per = rows_per_split / 128. K4 and K5: split i walks its share
+// [n*i/splits, n*(i+1)/splits) of the n = *n_tiles ascending tile indices
+// in x.tiles (ops/topk.py interval_tiles, scope_tiles, scope_share), and
+// offers only the rows below the count that its filter keeps.
 template <typename T, int F, int TQ>
 __global__ void __launch_bounds__(THREADS, 2)
     topk_scan_kernel(const T* __restrict__ emb, const float* __restrict__ q,
                      int64_t n_rows, int d_pad, int b, int64_t count, int k,
                      int64_t rows_per_split, int splits, ScanExtras x,
                      float* cand_vals, int* cand_idx) {
+  constexpr bool LISTED = F != kNoFilter;
   extern __shared__ __align__(16) float smem[];
   __shared__ int iv[2 * MAX_INTERVALS];
   constexpr int QB = FfmaTile<TQ>::QB;
@@ -98,12 +111,31 @@ __global__ void __launch_bounds__(THREADS, 2)
   for (int i = 0; i < TQ; ++i) top[i].init();
 
   const int64_t live = count < n_rows ? count : n_rows;
-  const int64_t begin = (int64_t)split * rows_per_split;
-  int64_t end = begin + rows_per_split;
-  if (end > live) end = live;
-  // rows_per_split is a multiple of RB, so the split starts on a tile.
-  const int64_t t_end = end > begin ? (end + RB - 1) / RB : begin / RB;
-  scan_tiles<T, TQ>(emb, q, n_rows, d_pad, b, q0, begin / RB, t_end, smem,
+  // Rows at or past `end` are offered as RAW_NEG: the split's end (K1) or
+  // the live count (listed tiles).
+  int64_t end, first;
+  int mine;
+  if constexpr (LISTED) {
+    const int64_t n = *x.n_tiles;
+    first = n * split / splits;
+    mine = (int)(n * (split + 1) / splits - first);
+    end = live;
+  } else {
+    const int64_t begin = (int64_t)split * rows_per_split;
+    end = begin + rows_per_split;
+    if (end > live) end = live;
+    // rows_per_split is a multiple of RB, so the split starts on a tile.
+    first = begin / RB;
+    mine = (int)((end > begin ? (end + RB - 1) / RB : first) - first);
+  }
+  using Tiles = typename std::conditional<LISTED, TileList, TileRange>::type;
+  Tiles tile_at;
+  if constexpr (LISTED) {
+    tile_at = TileList{x.tiles, first};
+  } else {
+    tile_at = TileRange{first};
+  }
+  scan_tiles<T, TQ>(emb, q, n_rows, d_pad, b, q0, mine, tile_at, smem,
                     [&](int64_t r0, const float* S) {
     bool ok[4];
 #pragma unroll
@@ -384,18 +416,27 @@ extern "C" int tat_topk_scan(const void* emb, int dtype, const float* q,
       query_block, tat::ScanExtras{}, cand_vals, cand_idx, stream);
 }
 
+// K4 and K5 read only listed tiles. tiles: the ascending indices of the
+// 128-row tiles that hold an in-scope row below the count, and n_tiles: a
+// device int holding how many (ops/topk.py interval_tiles for K4,
+// scope_tiles for K5). splits: CTAs per query block (scan_geometry over
+// the count; rows_per_split is unused).
+
 // K4: rows inside any of n_intervals (<= 8) [start, stop) spans.
 extern "C" int tat_topk_scan_iv(const void* emb, int dtype, const float* q,
                                 int64_t n_rows, int d_pad, int b,
                                 int64_t count, int k, int64_t rows_per_split,
                                 int splits, int query_block,
                                 const int* intervals, int n_intervals,
+                                const int* tiles, const int* n_tiles,
                                 float* cand_vals, int* cand_idx, void* stream) {
-  if (n_intervals < 0 || n_intervals > tat::MAX_INTERVALS)
+  if (n_intervals < 0 || n_intervals > tat::MAX_INTERVALS || !tiles || !n_tiles)
     return (int)cudaErrorInvalidValue;
   tat::ScanExtras x{};
   x.intervals = intervals;
   x.n_intervals = n_intervals;
+  x.tiles = tiles;
+  x.n_tiles = n_tiles;
   return tat::launch_float_scan<tat::kIntervals>(
       emb, dtype, q, n_rows, d_pad, b, count, k, rows_per_split, splits,
       query_block, x, cand_vals, cand_idx, stream);
@@ -407,10 +448,14 @@ extern "C" int tat_topk_scan_mask(const void* emb, int dtype, const float* q,
                                   int64_t count, int k,
                                   int64_t rows_per_split, int splits,
                                   int query_block, const int* mask,
+                                  const int* tiles, const int* n_tiles,
                                   float* cand_vals, int* cand_idx,
                                   void* stream) {
+  if (!tiles || !n_tiles) return (int)cudaErrorInvalidValue;
   tat::ScanExtras x{};
   x.mask = mask;
+  x.tiles = tiles;
+  x.n_tiles = n_tiles;
   return tat::launch_float_scan<tat::kMask>(
       emb, dtype, q, n_rows, d_pad, b, count, k, rows_per_split, splits,
       query_block, x, cand_vals, cand_idx, stream);

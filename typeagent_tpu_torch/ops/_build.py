@@ -23,7 +23,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("topk.cu", "bucket_maxima.cu", "rescore.cu")
+KERNEL_SOURCES = ("topk.cu", "bucket_maxima.cu", "rescore.cu", "tile_list.cu")
 KERNEL_HEADERS = ("tile.cuh", "mma_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -123,14 +123,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     # Every top-k scan takes (emb, dtype code or scales, q, n_rows, d_pad,
     # b, count, k, rows_per_split, splits, query_block, <filter operands>,
-    # cand_vals, cand_idx, stream); K7's filter operands are the mask, the
-    # tile list and its device count.
+    # cand_vals, cand_idx, stream); the scoped scans' filter operands end
+    # with the tile list and its device count (K4: the interval table and
+    # its rows first; K5 and K7: the mask).
     geometry = [p, i64, i32, i32, i64, i32, i64, i32, i32]
     tail = [p, p, p]
     signatures = {
         "tat_topk_scan": [p, i32, *geometry, *tail],
-        "tat_topk_scan_iv": [p, i32, *geometry, p, i32, *tail],
-        "tat_topk_scan_mask": [p, i32, *geometry, p, *tail],
+        "tat_topk_scan_iv": [p, i32, *geometry, p, i32, p, p, *tail],
+        "tat_topk_scan_mask": [p, i32, *geometry, p, p, p, *tail],
         "tat_topk_scan_q": [p, p, *geometry, *tail],
         "tat_topk_scan_mq": [p, p, *geometry, p, p, p, *tail],
         "tat_topk_merge": [p, p, i32, i32, i32, p, p, p],
@@ -138,6 +139,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, i64, i32, i32, p, p, p],
         "tat_bucket_maxima_q": [p, i32, p, p, i64, i32, i32, i64, i64, i32, p, p],
         "tat_rescore": [p, i32, p, p, i64, i32, i32, i32, p, p],
+        # The scoped scans' tile lists: (table, rows, count | mask, count,
+        # scratch words), then tiles, n_tiles, stream.
+        "tat_interval_tiles": [p, i32, i64, p, p, p],
+        "tat_scope_tiles": [p, i64, p, p, p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -11,8 +11,10 @@ the exact routes:
     K5 ``fused_topk_masked`` (rows whose i32 mask entry is > 0),
     K6 ``fused_topk_q`` (int8 rows with per-row scales) and
     K7 ``fused_topk_mq`` (K6 with K5's mask), the last two on the
-    tensor-core loop of K8 (``csrc/mma_tile.cuh``), K7 reading only the
-    tiles that hold an in-scope row (:func:`scope_tiles`);
+    tensor-core loop of K8 (``csrc/mma_tile.cuh``); the scoped scans K4,
+    K5 and K7 read only the tiles that hold an in-scope row, which
+    :func:`interval_tiles` and :func:`scope_tiles` list on the device
+    (``csrc/tile_list.cu``);
   * K2 ``bucket_maxima``: maximum raw cosine of each 128-row bucket, the
     selection phase of the two-phase ("exact2") search; K2'
     ``bucket_argmax``, the same kernel with the argmax row of each bucket,
@@ -28,7 +30,8 @@ Each kernel has a plain PyTorch version of the same function beside it
 (``topk_plain``, ``topk_iv_plain``, ``topk_masked_plain``,
 ``topk_q_plain``, ``topk_mq_plain``, ``bucket_maxima_plain``,
 ``bucket_argmax_plain``, ``bucket_maxima_q_plain``,
-``rescore_selected_plain``). A wrapper runs the
+``rescore_selected_plain``, ``interval_tiles_plain``,
+``scope_tiles_plain``). A wrapper runs the
 plain version for a tensor on the CPU and launches its kernel for a CUDA
 tensor; there is no other fallback. Each wrapper counts its launches, so
 a run can show that the serving path went through it.
@@ -70,6 +73,9 @@ __all__ = [
     "rescore_selected_plain",
     "intervals_to_rowmask",
     "scope_tiles",
+    "scope_tiles_plain",
+    "interval_tiles",
+    "interval_tiles_plain",
     "topk_program_masked",
     "topk_program_intervals",
     "quantize_rows",
@@ -159,13 +165,16 @@ BUCKET_MAXIMA_Q_LAUNCHES = LaunchCounter("bucket_maxima_q")
 # ``launch_counts`` reads every kernel.
 BUCKET_MAXIMA_Q4_LAUNCHES = LaunchCounter("bucket_maxima_q4")
 RESCORE_LAUNCHES = LaunchCounter("rescore")
+# The scoped scans' tile lists (csrc/tile_list.cu).
+INTERVAL_TILES_LAUNCHES = LaunchCounter("interval_tiles")
+SCOPE_TILES_LAUNCHES = LaunchCounter("scope_tiles")
 # Calls of the k > 32 route, which materializes scores (no kernel).
 MATERIALIZED_CALLS = LaunchCounter("materialized_topk")
 COUNTERS = (
     TOPK_LAUNCHES, TOPK_IV_LAUNCHES, TOPK_MASK_LAUNCHES, TOPK_Q_LAUNCHES,
     TOPK_MQ_LAUNCHES, BUCKET_MAXIMA_LAUNCHES, BUCKET_ARGMAX_LAUNCHES,
     BUCKET_MAXIMA_Q_LAUNCHES, BUCKET_MAXIMA_Q4_LAUNCHES, RESCORE_LAUNCHES,
-    MATERIALIZED_CALLS,
+    INTERVAL_TILES_LAUNCHES, SCOPE_TILES_LAUNCHES, MATERIALIZED_CALLS,
 )
 
 
@@ -318,7 +327,7 @@ def scan_geometry(count: int, n_rows: int, b: int, sms: int, query_block: int) -
 
 
 def scope_share(n_tiles: int, splits: int, split: int) -> tuple[int, int]:
-    """Positions ``[first, last)`` of a listed scan's tile list (K7) that
+    """Positions ``[first, last)`` of a listed scan's tile list (K4, K5, K7) that
     CTA ``split`` of ``splits`` walks, as ``csrc/topk.cu`` computes them
     from the device count: contiguous, ascending with ``split``, and
     within one tile of each other in size."""
@@ -498,14 +507,17 @@ def fused_topk_iv(
     intervals: torch.Tensor, k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K4 (``csrc/topk.cu``), as :func:`topk_iv_plain`; ``intervals`` has
-    at most 8 rows."""
+    at most 8 rows. The kernel reads only the tiles
+    :func:`interval_tiles` lists, which it builds on the device without a
+    host synchronisation."""
     if emb.device.type == "cpu":
         return topk_iv_plain(emb, queries, count, intervals, k)
     code = _check_cuda_operands(emb, queries)
     _check_intervals(intervals, emb)
+    tiles, n_tiles = interval_tiles(intervals, count, emb.shape[0])
     return _launch_topk(
         "tat_topk_scan_iv", TOPK_IV_LAUNCHES, emb, (code,), queries, count, k,
-        (intervals.data_ptr(), intervals.shape[0]),
+        (intervals.data_ptr(), intervals.shape[0], tiles.data_ptr(), n_tiles.data_ptr()),
     )
 
 
@@ -529,14 +541,16 @@ def fused_topk_masked(
     rowmask: torch.Tensor, k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """K5 (``csrc/topk.cu``), as :func:`topk_masked_plain`; the mask is
-    int32."""
+    int32. The kernel reads only the tiles :func:`scope_tiles` lists, as
+    K7 does."""
     if emb.device.type == "cpu":
         return topk_masked_plain(emb, queries, count, rowmask, k)
     code = _check_cuda_operands(emb, queries)
     mask = _check_rowmask(rowmask, emb)
+    tiles, n_tiles = scope_tiles(mask, count)
     return _launch_topk(
         "tat_topk_scan_mask", TOPK_MASK_LAUNCHES, emb, (code,), queries, count,
-        k, (mask.data_ptr(),),
+        k, (mask.data_ptr(), tiles.data_ptr(), n_tiles.data_ptr()),
     )
 
 
@@ -884,7 +898,38 @@ def intervals_to_rowmask(n: int, intervals: torch.Tensor) -> torch.Tensor:
     return ((pos >= 0) & (rows < stop_at)).to(torch.int32)[None, :]
 
 
-def scope_tiles(mask: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _listed_tiles(hit: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(tiles, n_tiles)`` of a ``[live]`` bool flag per tile: the flagged
+    indices ascending, then -1, and a ``[1]`` int32 count, on the flags'
+    device, with no host synchronisation: a running count of the flags
+    gives each listed tile its position, and a scatter puts it there."""
+    live = hit.shape[0]
+    pos = torch.cumsum(hit, 0, dtype=torch.int32)
+    n_tiles = pos[-1:] if live else torch.zeros((1,), dtype=torch.int32, device=hit.device)
+    # Unlisted tiles land in a spare last slot, cut off below.
+    tiles = torch.full((live + 1,), -1, dtype=torch.int32, device=hit.device)
+    tiles.scatter_(
+        0, torch.where(hit, pos - 1, live).long(),
+        torch.arange(live, dtype=torch.int32, device=hit.device),
+    )
+    return tiles[:live], n_tiles
+
+
+def _mask_tiles(mask: torch.Tensor, count: int) -> tuple[torch.Tensor, int, int]:
+    """The flat mask, the count clamped to it, and the live tiles."""
+    m = mask.reshape(-1)
+    if m.shape[0] % _RB:
+        raise ValueError(f"mask length {m.shape[0]} is not a multiple of {_RB}")
+    count = max(0, min(int(count), m.shape[0]))
+    return m, count, -(-count // _RB)
+
+
+def _list_buffers(live: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty((live,), dtype=torch.int32, device=device),
+            torch.empty((1,), dtype=torch.int32, device=device))
+
+
+def scope_tiles_plain(mask: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The 128-row tiles a scoped scan must read: those holding at least
     one row ``r < count`` whose ``mask`` entry (``[n]`` or ``[1, n]``,
     ``n % 128 == 0``) is > 0.
@@ -893,28 +938,83 @@ def scope_tiles(mask: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Ten
     length ``ceil(count / 128)``, holds their indices ascending, then -1;
     ``n_tiles`` is a ``[1]`` int32 tensor holding how many. Built from torch
     ops alone, with no host synchronisation (no ``.item()``, ``nonzero``
-    or ``unique``), so a pipelined server never waits on it: a flag per
-    tile, a running count of the flags for each listed tile's position,
-    and a scatter.
+    or ``unique``): a flag per tile, then :func:`_listed_tiles`.
     """
-    m = mask.reshape(-1)
-    if m.shape[0] % _RB:
-        raise ValueError(f"mask length {m.shape[0]} is not a multiple of {_RB}")
-    count = max(0, min(int(count), m.shape[0]))
-    live = -(-count // _RB)
+    m, count, live = _mask_tiles(mask, count)
     flags = m[: live * _RB].view(live, _RB) > 0
     if count % _RB:
         flags[-1, count % _RB :] = False  # rows past the count
-    hit = flags.any(dim=1)
-    pos = torch.cumsum(hit, 0, dtype=torch.int32)
-    n_tiles = pos[-1:] if live else torch.zeros((1,), dtype=torch.int32, device=m.device)
-    # Unlisted tiles land in a spare last slot, cut off below.
-    tiles = torch.full((live + 1,), -1, dtype=torch.int32, device=m.device)
-    tiles.scatter_(
-        0, torch.where(hit, pos - 1, live).long(),
-        torch.arange(live, dtype=torch.int32, device=m.device),
+    return _listed_tiles(flags.any(dim=1))
+
+
+def scope_tiles(mask: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scope_tiles_plain` in one call of ``csrc/tile_list.cu`` (a
+    word of 32 tile flags per warp, then one CTA's ascending compaction)
+    for a contiguous int32 mask on the card: the list stays on the device,
+    so a pipelined server never waits on it."""
+    if mask.device.type == "cpu":
+        return scope_tiles_plain(mask, count)
+    m, count, live = _mask_tiles(mask, count)
+    if m.dtype != torch.int32 or not m.is_contiguous():
+        raise ValueError("the listing kernel takes a contiguous int32 mask")
+    words = torch.empty((-(-live // 32),), dtype=torch.int32, device=m.device)  # 32 tile flags each
+    tiles, n_tiles = _list_buffers(live, m.device)
+    _build.check(
+        _build.kernels().tat_scope_tiles(
+            m.data_ptr(), count, words.data_ptr(), tiles.data_ptr(), n_tiles.data_ptr(), _stream(m)
+        ),
+        "scope_tiles",
     )
-    return tiles[:live], n_tiles
+    SCOPE_TILES_LAUNCHES.add()
+    return tiles, n_tiles
+
+
+def interval_tiles_plain(
+    intervals: torch.Tensor, count: int, n_rows: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`scope_tiles_plain` of an interval table (``[s, 2]`` int32
+    half-open ``[start, stop)`` rows, unsorted or overlapping; ``(0, 0)``
+    padding and other empty rows select nothing) over an ``n_rows`` store,
+    without the row mask: with the count clamped to ``[0, n_rows]``, tile
+    ``t`` is listed iff some non-empty row meets ``[128t, min(128t + 128,
+    count))``. One ``[ceil(count/128), s]`` comparison on the table's
+    device, then :func:`_listed_tiles`; no host synchronisation."""
+    count = max(0, min(int(count), n_rows))
+    live = -(-count // _RB)
+    iv = intervals.to(torch.int64)
+    lo = torch.arange(live, dtype=torch.int64, device=iv.device)[:, None] * _RB
+    hi = (lo + _RB).clamp(max=count)
+    meets = torch.maximum(iv[None, :, 0], lo) < torch.minimum(iv[None, :, 1], hi)
+    return _listed_tiles(meets.any(dim=1))
+
+
+def interval_tiles(
+    intervals: torch.Tensor, count: int, n_rows: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`interval_tiles_plain` in one launch of ``csrc/tile_list.cu``
+    (one CTA flags 32 tiles at a time against the table and compacts the
+    listed ones in ascending order) for a contiguous int32 table on the
+    card."""
+    if intervals.device.type == "cpu":
+        return interval_tiles_plain(intervals, count, n_rows)
+    if (
+        intervals.dtype != torch.int32
+        or intervals.dim() != 2
+        or intervals.shape[1] != 2
+        or not intervals.is_contiguous()
+    ):
+        raise ValueError("the listing kernel takes a contiguous [s, 2] int32 table")
+    count = max(0, min(int(count), n_rows))
+    tiles, n_tiles = _list_buffers(-(-count // _RB), intervals.device)
+    _build.check(
+        _build.kernels().tat_interval_tiles(
+            intervals.data_ptr(), intervals.shape[0], count, tiles.data_ptr(),
+            n_tiles.data_ptr(), _stream(intervals),
+        ),
+        "interval_tiles",
+    )
+    INTERVAL_TILES_LAUNCHES.add()
+    return tiles, n_tiles
 
 
 def topk_program_masked(
