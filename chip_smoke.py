@@ -16,8 +16,10 @@ Phases, one JSON line each:
      (overlapping, (0, 0)-padded, one holding the count watermark), a
      one-bucket cluster and a store of one bucket, at 65,536 rows and
      (K4-K7) at 1M x 384 (later phases check each kernel again at their
-     shapes; K8 and K9 at d = 128 and 384, and 100 for K9, b = 1, 8, 256,
-     a ragged watermark, a store of one bucket and a dead one); then the
+     shapes; K8 and K9 at d = 128, 384 and 1024 (query strips streamed),
+     and 100 and 2048 for K9, b = 1, 8, 256, a ragged watermark, a store
+     of one bucket and a dead one, K9 over the live depth with the whole
+     width's bits); then the
      listed scans at 1M x 384, b = 1, 8, 64, 256, k = 1, 10, 32: K6 and K7
      over int8 rows, K4 (interval table) and K5 (row mask) over f32 and
      bf16 rows, over scopes that make them skip tiles: in-scope tiles with
@@ -95,8 +97,9 @@ bytes it must move over 3.35 TB/s and its operations over the peak of
 their type: 67 TFLOP/s f32, 989 bf16; rows a scope excludes are not
 counted), the share of that bound it reaches, and the time of
 ``torch.matmul`` of the same operands in the kernel's product type
-(``product_ms``: the product alone, not the same function, null for the
-listing kernels, which multiply nothing; no single
+(``product_ms``: the product alone, not the same function, over the depth
+the kernel walks (K9: the live depth, not the packing's padding), null for
+the listing kernels, which multiply nothing; no single
 PyTorch call computes any of these kernels' functions, so ``library_ms``
 is null); the last line is the device summary. Any
 failed check exits non-zero. There is no CPU mode: without a CUDA device
@@ -688,7 +691,10 @@ def main() -> int:
 
     # K8 and K9: the int8 and packed-int4 selection shadows of unit rows
     # (codes of both signs in both nibbles), a ragged watermark (the last
-    # two buckets dead), a store of one bucket and a dead store.
+    # two buckets dead), a store of one bucket and a dead store; d = 1024
+    # and 2048 stream their query strips through the ring. K9 walks the
+    # live depth of rows of width d, as the int4 search calls it, and must
+    # give the whole width's bits.
     def check_selection(name, got, ref, count, what):
         err = (got - ref).abs().max().item()
         require(err <= TOL_INT8, f"{what}: max value error {err} > {TOL_INT8}")
@@ -698,7 +704,7 @@ def main() -> int:
         kernel_err[name] = max(kernel_err[name], err)
 
     n_pad = 1 << 16
-    for d in (100, 128, 384):
+    for d in (100, 128, 384, 1024, 2048):
         rows = torch.nn.functional.normalize(torch.randn((n_pad, d), generator=gen, device=dev), dim=1)
         qs = torch.nn.functional.normalize(torch.randn((256, d), generator=gen, device=dev), dim=1)
         emb_q, sc = topk.quantize_rows_device(rows)
@@ -706,17 +712,21 @@ def main() -> int:
         for n_rows, count, bs in ((n_pad, n_pad - 333, (1, 8, 256)), (128, 77, (8,)), (256, 0, (8,))):
             for b in bs:
                 q = qs[:b].contiguous()
-                if d % 64 == 0:
+                if d % 64 == 0 and d <= 1024:
                     check_selection("bucket_maxima_q",
                                     topk.bucket_maxima_q(emb_q[:n_rows], sc[:n_rows], q, count),
                                     topk.bucket_maxima_q_plain(emb_q[:n_rows], sc[:n_rows], q, count),
                                     count, f"K8 d={d} n={n_rows} count={count} b={b}")
                     checks += 1
                 q_split = int4.split_pad_queries(q, d)
-                check_selection("bucket_maxima_q4",
-                                int4.bucket_maxima_q4(packed[:n_rows], sc4[:n_rows], q_split, count),
-                                int4.bucket_maxima_q4_plain(packed[:n_rows], sc4[:n_rows], q_split, count),
-                                count, f"K9 d={d} n={n_rows} count={count} b={b}")
+                what = f"K9 d={d} n={n_rows} count={count} b={b}"
+                got = int4.bucket_maxima_q4(packed[:n_rows], sc4[:n_rows], q_split, count, d=d)
+                check_selection("bucket_maxima_q4", got,
+                                int4.bucket_maxima_q4_plain(packed[:n_rows], sc4[:n_rows], q_split, count, d=d),
+                                count, what)
+                whole = int4.bucket_maxima_q4(packed[:n_rows], sc4[:n_rows], q_split, count)
+                require(torch.equal(got.view(torch.int32), whole.view(torch.int32)),
+                        f"{what}: the live depth changed the whole width's bits")
                 checks += 1
         del rows, emb_q, packed
     emit({"phase": 1, "checks": checks, "max_abs_err": kernel_err,
@@ -1568,20 +1578,25 @@ def main() -> int:
     # broken selection (the JAX records give ~0.96 at slack 14).
     require(out11["float32_slack14"]["recall"] >= 0.8, f"int4: recall {out11['float32_slack14']['recall']}")
     q_split = int4.split_pad_queries(q0, D_MAIN)
-    got = int4.bucket_maxima_q4(packed, p_scales, q_split, N_MAIN)
-    err = (got - int4.bucket_maxima_q4_plain(packed, p_scales, q_split, N_MAIN)).abs().max().item()
+    got = int4.bucket_maxima_q4(packed, p_scales, q_split, N_MAIN, d=D_MAIN)
+    err = (got - int4.bucket_maxima_q4_plain(packed, p_scales, q_split, N_MAIN, d=D_MAIN)).abs().max().item()
     require(err <= TOL_INT8, f"K9 1M: error {err} > {TOL_INT8}")
     kernel_err["bucket_maxima_q4"] = max(kernel_err["bucket_maxima_q4"], err)
-    unpacked = int4._unpack(packed[: live_rows(N_MAIN)]).to(torch.bfloat16)  # [n, 2*dh]: the product's operand
-    # The bound counts the d = 384 columns the rows hold, not the packing's
-    # zero padding (2*dh = 512 deep).
+    # The product alone over the live depth (2 * 192 = 384 deep at d =
+    # 384, the kernel's own work), not the packing's 512-deep padding; the
+    # bound counts the d = 384 columns the rows hold.
+    dh, live = packed.shape[1], int4.live_depth(D_MAIN)
+    lo, hi = int4._nibbles(packed[: live_rows(N_MAIN), :live])
+    unpacked = torch.cat([lo, hi], dim=1).to(torch.bfloat16)
+    del lo, hi
+    q_live = torch.cat([q_split[:, :live], q_split[:, dh : dh + live]], dim=1)
     record("bucket_maxima_q4",
-           in_turns(cuda_ms, lambda: int4.bucket_maxima_q4(packed, p_scales, q_split, N_MAIN),
-                    lambda: int4.bucket_maxima_q4_plain(packed, p_scales, q_split, N_MAIN)),
+           in_turns(cuda_ms, lambda: int4.bucket_maxima_q4(packed, p_scales, q_split, N_MAIN, d=D_MAIN),
+                    lambda: int4.bucket_maxima_q4_plain(packed, p_scales, q_split, N_MAIN, d=D_MAIN)),
            bound_of(2.0 * 256 * N_MAIN * D_MAIN,
                     N_MAIN * packed.shape[1] + N_MAIN * 4 + q_split.numel() * 2 + 256 * (n_pad // 128) * 4,
                     PEAK_BF16),
-           cuda_ms(lambda: torch.matmul(q_split, unpacked.T), iters=3))
+           cuda_ms(lambda: torch.matmul(q_live, unpacked.T), iters=3))
     del unpacked
     out11.update({"k9_max_abs_err": err, "k9_ms": kernel_ms["bucket_maxima_q4"][0],
                   "k9_plain_ms": kernel_ms["bucket_maxima_q4"][1],

@@ -772,11 +772,18 @@ def _unit_rows(rng, n, d, dev):
     return torch.from_numpy(m).to(dev)
 
 
-@pytest.mark.parametrize("d", [128, 384])
-@pytest.mark.parametrize("n_pad,count,b", [(9216, 9000 - 45, 37), (9216, 9216, 256), (128, 77, 1), (256, 0, 8)])
+# K8 and K9 at query widths that stay resident in shared memory (K8 d <=
+# 384, K9 d <= 384) and that stream through the ring (K8 d = 1024, K9 d =
+# 2048): ragged and full watermarks, a one-bucket store and a dead store.
+SELECTION_STORES = [(9216, 9000 - 45), (9216, 9216), (128, 77), (256, 0)]
+SELECTION_BATCHES = [1, 8, 37, 65, 256]
+
+
+@pytest.mark.parametrize("d", [64, 128, 384, 1024])
+@pytest.mark.parametrize("n_pad,count", SELECTION_STORES)
+@pytest.mark.parametrize("b", SELECTION_BATCHES)
 def test_bucket_maxima_q_matches_plain(dev, d, n_pad, count, b):
-    """K8 over an int8 shadow: ragged and full watermarks, a one-bucket
-    store, a dead store (every bucket -3)."""
+    """K8 over an int8 shadow (every bucket of a dead store -3)."""
     rng = np.random.default_rng(16)
     emb_q, scales = topk.quantize_rows_device(_unit_rows(rng, n_pad, d, dev))
     q = _queries(rng, b, d, dev)
@@ -791,23 +798,44 @@ def test_bucket_maxima_q_matches_plain(dev, d, n_pad, count, b):
     assert bool((got[:, dead] == -3.0).all()) and bool((got[:, ~dead] > -2.0).all())
 
 
-@pytest.mark.parametrize("d", [100, 128, 384])
-@pytest.mark.parametrize("n_pad,count,b", [(9216, 9000 - 45, 37), (9216, 9216, 256), (128, 77, 1), (256, 0, 8)])
+@pytest.mark.parametrize("d", [100, 128, 256, 384, 2048])
+@pytest.mark.parametrize("n_pad,count", SELECTION_STORES)
+@pytest.mark.parametrize("b", SELECTION_BATCHES)
 def test_bucket_maxima_q4_matches_plain(dev, d, n_pad, count, b):
-    """K9 over a packed int4 shadow (d = 100: halves of 50, dh 128); codes
+    """K9 over a packed int4 shadow (d = 100: halves of 50, dh 128), over
+    the live depth of rows of width d as the int4 search calls it; codes
     of both signs in both nibbles."""
     rng = np.random.default_rng(17)
     packed, scales = int4.quantize_rows_int4_device(_unit_rows(rng, n_pad, d, dev))
     qs = int4.split_pad_queries(_queries(rng, b, d, dev), d)
     topk.reset_launch_counts()
-    got = int4.bucket_maxima_q4(packed, scales, qs, count)
-    ref = int4.bucket_maxima_q4_plain(packed, scales, qs, count)
+    got = int4.bucket_maxima_q4(packed, scales, qs, count, d=d)
+    ref = int4.bucket_maxima_q4_plain(packed, scales, qs, count, d=d)
     torch.cuda.synchronize()
     assert topk.launch_counts()["bucket_maxima_q4"] == 1
     assert tuple(got.shape) == (b, n_pad // 128)
     assert (got - ref).abs().max().item() <= 1e-5
     dead = torch.arange(n_pad // 128, device=dev) * 128 >= count
     assert bool((got[:, dead] == -3.0).all()) and bool((got[:, ~dead] > -2.0).all())
+
+
+@pytest.mark.parametrize("d", [100, 256, 384, 2048])
+@pytest.mark.parametrize("b", [8, 256])
+def test_bucket_maxima_q4_live_depth_keeps_the_bits(dev, d, b):
+    """K9 over the live depth gives the whole width's bits, also when the
+    packed bytes past the live depth hold random codes (they meet zero
+    query columns)."""
+    rng = np.random.default_rng(20)
+    n_pad, count = 4096, 4000
+    packed, scales = int4.quantize_rows_int4_device(_unit_rows(rng, n_pad, d, dev))
+    qs = int4.split_pad_queries(_queries(rng, b, d, dev), d)
+    noisy = packed.clone()
+    live = int4.live_depth(d)
+    noisy[:, live:] = torch.randint(-128, 128, noisy[:, live:].shape, dtype=torch.int8, device=dev)
+    whole = int4.bucket_maxima_q4(packed, scales, qs, count)
+    for got in (int4.bucket_maxima_q4(packed, scales, qs, count, d=d),
+                int4.bucket_maxima_q4(noisy, scales, qs, count, d=d)):
+        assert torch.equal(got.view(torch.int32), whole.view(torch.int32))
 
 
 def test_selection_wrappers_reject_bad_operands(dev):

@@ -126,6 +126,91 @@ def test_bucket_maxima_q4_plain_matches_pallas_interpret(rng, batch):
     assert (got[:, (count + 127) // 128 :] == -3.0).all()
 
 
+def test_live_depth_rule():
+    """K9's live depth: whole 32-byte strips that cover the ceil(d/2)
+    packed bytes holding codes, never past the packing's width."""
+    for d in range(1, 1025):
+        live = int4.live_depth(d)
+        assert live % 32 == 0 and (d + 1) // 2 <= live <= int4._half_pad(d), d
+    assert [int4.live_depth(d) for d in (100, 128, 256, 384, 2048)] == [64, 64, 128, 192, 1024]
+
+
+@pytest.mark.parametrize("d", [1, 33, 100, 128, 255, 384, 1000])
+def test_jax_split_queries_are_zero_past_the_live_depth(rng, d):
+    """What makes the skip exact: the JAX split puts no query value in
+    either half's columns past live_depth(d)."""
+    dh, live = jint4._half_pad(d), int4.live_depth(d)
+    qs = np.asarray(jint4.split_pad_queries(jnp.asarray(_normed(rng, 3, d)), d).astype(jnp.float32))
+    assert qs.shape == (3, 2 * dh)
+    assert (qs[:, live:dh] == 0).all() and (qs[:, dh + live :] == 0).all()
+
+
+def _with_random_padding(rng, packed, d):
+    """A copy of the packed shadow whose bytes past live_depth(d) hold
+    random codes in both nibbles."""
+    out = packed.copy()
+    live = int4.live_depth(d)
+    out[:, live:] = rng.integers(-128, 128, size=out[:, live:].shape, dtype=np.int8)
+    return out
+
+
+@pytest.mark.parametrize("d", [100, 128, 384])
+def test_bucket_maxima_q4_plain_live_depth_matches_pallas_interpret(rng, d):
+    """K9's plain version over the live depth only (as the kernel walks
+    it) against the JAX Pallas kernel in interpret mode over the untouched
+    shadow, at a ragged watermark; and, to the bit, against the port's
+    whole-width result, even when the bytes past the live depth hold
+    random codes."""
+    n, batch = 8192, 8
+    rows = _normed(rng, n, d)
+    packed, scales = int4.quantize_rows_int4(rows)
+    q = _normed(rng, batch, d)
+    count = n - 173
+    pal = np.asarray(jint4._bucket_maxima_pallas_q4(
+        jnp.asarray(packed), jnp.asarray(scales), jint4.split_pad_queries(jnp.asarray(q), d),
+        jnp.asarray([count], jnp.int32), interpret=True,
+    ))
+    qs = int4.split_pad_queries(torch.from_numpy(q), d)
+    sc = torch.from_numpy(scales)
+    noisy = torch.from_numpy(_with_random_padding(rng, packed, d))
+    live = int4.bucket_maxima_q4(torch.from_numpy(packed), sc, qs, count, d=d)
+    nb = n // 128
+    np.testing.assert_allclose(live.numpy(), pal[:, :nb], atol=RAW_TOL)
+    whole = int4.bucket_maxima_q4_plain(torch.from_numpy(packed), sc, qs, count)
+    for got in (live, int4.bucket_maxima_q4_plain(noisy, sc, qs, count, d=d),
+                int4.bucket_maxima_q4_plain(noisy, sc, qs, count)):
+        np.testing.assert_array_equal(got.numpy().view(np.int32), whole.numpy().view(np.int32))
+
+
+def test_live_depth_refuses_a_width_that_does_not_pack_to_the_shadow():
+    packed = torch.zeros((256, 128), dtype=torch.int8)  # _half_pad(384) = 256
+    qs = torch.zeros((2, 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="_half_pad"):
+        int4.bucket_maxima_q4(packed, torch.ones(256), qs, 200, d=384)
+
+
+@pytest.mark.parametrize("d", [100, 384])
+def test_exact2_i4_passes_its_width_to_k9(rng, monkeypatch, d):
+    """The program hands K9 its rows' width, so the product walks the
+    live depth only, and still matches the JAX search."""
+    n, count, k = 2048, 1900, 10
+    rows = _normed(rng, n, d)
+    packed, scales = int4.quantize_rows_int4(rows)
+    q = _bf16_round(_normed(rng, 8, d))
+    seen = []
+    k9 = int4.bucket_maxima_q4
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("d"))
+        return k9(*args, **kwargs)
+
+    monkeypatch.setattr(int4, "bucket_maxima_q4", spy)
+    (jv, ji, jc), (tv, ti, tc) = _search_both(rows, packed, scales, q, count, k, 6, "float32")
+    assert seen == [d]
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    assert_topk_equivalent(tv, ti, jv, ji, F32_TOL)
+
+
 @pytest.mark.parametrize("d,n,count", [(64, 1024, 1024), (100, 2048, 1500), (384, 1024, 77)])
 def test_bucket_maxima_q4_plain_matches_jax_xla(rng, d, n, count):
     rows = _normed(rng, n, d)

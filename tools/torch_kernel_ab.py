@@ -28,7 +28,10 @@ and 8, and over the f32 rows at b = 256; K2' f32 and bf16 at b = 256; K3
 int8 rows at b = 64; K4 at b = 256 over a one-interval suffix of the last
 100,000 rows (the IVF append path's scan; --only suffix); K6 also at b =
 8, 16 and 256, and K7 over a one-third scope of 8 interleaved segments
-(one conversation of the corpus layout below); K8 and K9 at b = 256; the
+(one conversation of the corpus layout below); K8 and K9 at b = 256 and 8
+(K9 given the rows' width where the tree's K9 takes it, as the int4
+search calls it: ``same_outputs`` then says whether skipping the
+packing's padding kept the parent's bits); the
 IVF program over the rows in bf16 (B = 16, a 3% outlier tail), its tail
 and the tail's K2; the batch-256 lookup of a 1M f32 store (hybrid exact2:
 K2 + K3) and of a 100k store (K1); scoped searches of a 100k-row store
@@ -53,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -151,7 +155,11 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
     emb_q, scales = topk.quantize_rows_device(rows)
     packed, sc4 = int4.quantize_rows_int4_device(rows)
     q_split = int4.split_pad_queries(q256, D)
-    ids = torch.topk(topk.bucket_maxima(shadow, q256, N), K + 14, dim=1).indices.to(torch.int32).contiguous()
+    q_split8 = q_split[:8].contiguous()
+    # The rows' width, as the int4 search passes it, in trees whose K9 takes
+    # it (the product then skips the packing's padding; same bits).
+    k9_width = {"d": D} if "d" in inspect.signature(int4.bucket_maxima_q4).parameters else {}
+    ids =torch.topk(topk.bucket_maxima(shadow, q256, N), K + 14, dim=1).indices.to(torch.int32).contiguous()
     iv = torch.tensor([[i * 125_000, i * 125_000 + 62_500] for i in range(8)], dtype=torch.int32, device=dev)
     mask = topk.intervals_to_rowmask(n_pad, iv)[0].contiguous()
     suffix = torch.tensor([[N - 100_000, N]], dtype=torch.int32, device=dev)
@@ -221,7 +229,9 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
         "K7 int8 1M b64 mask": lambda: topk.fused_topk_mq(emb_q, scales, q64, N, mask, K),
         "K7 int8 1M b64 one-third scope": lambda: topk.fused_topk_mq(emb_q, scales, q64, N, third, K),
         "K8 int8 1M b256": lambda: topk.bucket_maxima_q(emb_q, scales, q256, N),
-        "K9 int4 1M b256": lambda: int4.bucket_maxima_q4(packed, sc4, q_split, N),
+        "K8 int8 1M b8": lambda: topk.bucket_maxima_q(emb_q, scales, q256[:8], N),
+        "K9 int4 1M b256": lambda: int4.bucket_maxima_q4(packed, sc4, q_split, N, **k9_width),
+        "K9 int4 1M b8": lambda: int4.bucket_maxima_q4(packed, sc4, q_split8, N, **k9_width),
         "IVF 1M bf16 B16 program b256": lambda: ivf.ivf_topk_program(*state, q256, K, B=16),
         "IVF tail exact2 b256": lambda: topk.cosine_topk_exact2(state.out_emb, q256, state.count_out, K),
         "IVF tail K2 b256": lambda: topk.bucket_maxima(state.out_emb, q256, state.count_out),

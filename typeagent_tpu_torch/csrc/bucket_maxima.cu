@@ -11,8 +11,9 @@
 //   _bucket_maxima_pallas_q (K8, phase 1 of cosine_topk_exact2_hybrid_i8),
 //   and typeagent_tpu/ops/int4.py  _bucket_maxima_kernel_q4, launched by
 //   _bucket_maxima_pallas_q4 (K9, phase 1 of cosine_topk_exact2_i4). Both
-//   are instances of the bf16 tensor-core kernel below with another row
-//   type: only the staging of a strip and the per-row scale differ.
+//   run the wgmma form of the bf16 kernel's strip loop (wgmma_tile.cuh)
+//   with a row type that converts its codes while staging, then scale
+//   each row's sums.
 //
 // Argmax rule: the lowest row among equal maxima (jnp.argmax in the JAX
 //   kernel). Each thread scans its own rows in ascending order keeping the
@@ -41,20 +42,27 @@
 //   buckets; the query blocks of one range run side by side, so the range
 //   is read from device memory once and from L2 after. Buckets wholly at
 //   or past the watermark skip the product and are spread over the CTAs.
-//   bf16 stores (the hybrid route's shadow, bf16 stores), int8 shadows
-//   (K8) and packed int4 shadows (K9): the tensor-core strip loop of
-//   mma_tile.cuh (mma.sync bf16 -> f32 on 32 x 32 warp tiles, queries
-//   resident in shared memory, a ring of row strips running ahead across
-//   bucket edges), whose epilogue here reduces each finished bucket. A 16
-//   x 64 warp tile read 2.5 KB of fragments per 16-deep step against the
-//   32 x 32 tile's 2 KB, with four times the load instructions. The
-//   scaled row types multiply each row's f32 sums by the row's scale, then
-//   mask rows at the watermark (scale first, then mask, as the JAX
-//   kernels do).
+//   bf16 stores (the hybrid route's shadow, bf16 stores): the tensor-core
+//   strip loop of mma_tile.cuh (mma.sync bf16 -> f32 on 32 x 32 warp
+//   tiles, queries resident in shared memory, a ring of row strips running
+//   ahead across bucket edges), whose epilogue here reduces each finished
+//   bucket. A 16 x 64 warp tile read 2.5 KB of fragments per 16-deep step
+//   against the 32 x 32 tile's 2 KB, with four times the load
+//   instructions.
+//   int8 shadows (K8) and packed int4 shadows (K9): the same loop on
+//   wgmma (wgmma_tile.cuh: each warpgroup a 64-row x 64-query m64n64k16
+//   product from swizzled shared memory); the conversion of their codes
+//   to bf16, not the product, sets their pace (wgmma_tile.cuh says how
+//   much). Each bucket's scales are loaded a bucket ahead. K9's strips
+//   walk only the packed bytes that hold codes (ops/int4.py live_depth:
+//   192 of 256 at d = 384): the padding past them meets query columns
+//   that split_pad_queries zeroes. Each row's f32 sums are multiplied by
+//   the row's scale, then rows at the watermark are masked (scale first,
+//   then mask, as the JAX kernels do).
 //   f32 stores: the FFMA tile of tile.cuh over the CTA's bucket range (no
 //   TF32: f32 stores must score at Precision.HIGHEST).
 
-#include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace tat {
 
@@ -159,7 +167,7 @@ __global__ void __launch_bounds__(THREADS, 2)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, int8 and int4 shadows: the tensor-core loop of mma_tile.cuh
+// bf16 stores (K2, K2'): the tensor-core loop of mma_tile.cuh
 // ---------------------------------------------------------------------------
 
 constexpr int RED_BYTES = ROW_WARPS * MMA_QB * 4;  // one cross-warp table
@@ -167,25 +175,22 @@ constexpr int RED_BYTES = ROW_WARPS * MMA_QB * 4;  // one cross-warp table
 // Dynamic shared memory of bucket_maxima_mma_kernel: the cross-warp tables
 // (red, then red_row for K2'), then the loop's resident query block and
 // ring (MmaLoopSmem).
-template <typename Rows, bool RESIDENT, bool WITH_IDX>
+template <bool RESIDENT, bool WITH_IDX>
 struct MmaSmem {
   static constexpr int RED = RED_BYTES * (WITH_IDX ? 2 : 1);
-  static __host__ __device__ int bytes(int qw) { return RED + MmaLoopSmem<Rows, RESIDENT>::bytes(qw); }
+  static __host__ __device__ int bytes(int qw) { return RED + MmaLoopSmem<RowsBf16, RESIDENT>::bytes(qw); }
 };
 
-// q: [b, width] bf16 for bf16 and int8 rows, [b, 2 * width] (the split
-// halves) for packed int4 rows; the wrapper casts the f32 queries once, as
-// the JAX kernels' callers cast queries to bf16. scales: [n_rows] f32 for
-// the scaled row types, unused for bf16 rows.
-template <typename Rows, bool RESIDENT, bool WITH_IDX>
+// q: [b, width] bf16; the wrapper casts the f32 queries once, as the JAX
+// kernels' callers cast queries to the store's dtype.
+template <bool RESIDENT, bool WITH_IDX>
 __global__ void __launch_bounds__(THREADS, 2)
-    bucket_maxima_mma_kernel(const typename Rows::T* __restrict__ emb,
-                             const float* __restrict__ scales,
+    bucket_maxima_mma_kernel(const __nv_bfloat16* __restrict__ emb,
                              const __nv_bfloat16* __restrict__ q,
                              int64_t n_rows, int width, int b, int64_t count,
                              float* out, int* out_idx, int64_t nb,
                              int64_t buckets_per_cta) {
-  using Smem = MmaSmem<Rows, RESIDENT, WITH_IDX>;
+  using Smem = MmaSmem<RESIDENT, WITH_IDX>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float(*red)[MMA_QB] = reinterpret_cast<float(*)[MMA_QB]>(smem_raw);
   int(*red_row)[MMA_QB] = reinterpret_cast<int(*)[MMA_QB]>(smem_raw + RED_BYTES);
@@ -198,21 +203,17 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int gr = lane >> 2;  // fragment row group
   const int t = lane & 3;    // thread in group
 
-  mma_tiles<Rows, RESIDENT>(
+  mma_tiles<RowsBf16, RESIDENT>(
       emb, q, n_rows, width, b, g.q0, (int)(g.t_end - g.t_begin),
       TileRange{g.t_begin}, smem_raw + Smem::RED,
       [&](int64_t bucket, const float(&acc)[2][4][4]) {
-        // Scale (int8 and int4 rows), mask rows at the watermark, then the
-        // max over the warp's 32 rows (lanes sharing t hold the same
-        // queries), then over the 4 row warps (ascending row groups).
+        // Mask rows at the watermark, then the max over the warp's 32 rows
+        // (lanes sharing t hold the same queries), then over the 4 row
+        // warps (ascending row groups).
         const int row0 = (int)(bucket * RB) + wr * 32 + gr;  // + 8*h2, h2 < 4
         bool live[4];
-        float scale[4];
 #pragma unroll
-        for (int h2 = 0; h2 < 4; ++h2) {
-          live[h2] = row0 + 8 * h2 < count;
-          if constexpr (Rows::SCALED) scale[h2] = live[h2] ? scales[row0 + 8 * h2] : 0.0f;
-        }
+        for (int h2 = 0; h2 < 4; ++h2) live[h2] = row0 + 8 * h2 < count;
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
 #pragma unroll
@@ -223,8 +224,7 @@ __global__ void __launch_bounds__(THREADS, 2)
             int row = -1;
 #pragma unroll
             for (int h2 = 0; h2 < 4; ++h2) {
-              float v = acc[h2 >> 1][n][2 * (h2 & 1) + h];
-              if constexpr (Rows::SCALED) v *= scale[h2];
+              const float v = acc[h2 >> 1][n][2 * (h2 & 1) + h];
               if (live[h2]) {
                 if (WITH_IDX) {
                   if (v > m) {
@@ -272,21 +272,135 @@ __global__ void __launch_bounds__(THREADS, 2)
   g.write_dead<WITH_IDX>(out, out_idx, b, MMA_QB, nb);
 }
 
-template <typename Rows, bool WITH_IDX>
-int launch_mma(const typename Rows::T* emb, const float* scales, const __nv_bfloat16* q,
-               int64_t n_rows, int width, int b, int64_t count, int64_t buckets_per_cta,
-               int ctas_per_qb, float* out, int* out_idx, cudaStream_t st) {
-  const int qw = Rows::SPLIT_QUERIES ? 2 * width : width;
+// ---------------------------------------------------------------------------
+// int8 and int4 shadows (K8, K9): the wgmma loop of wgmma_tile.cuh
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of bucket_maxima_wgmma_kernel: room to align the
+// loop's strips to the swizzle atom, the loop (WgmmaLoopSmem), then the
+// cross-warp table [8 warps][64 queries].
+template <typename Rows, bool RESIDENT>
+struct WgmmaSmem {
+  static constexpr int RED = (THREADS / 32) * MMA_QB * 4;
+  static __host__ __device__ int loop_bytes(int n_strips) {
+    return WgmmaLoopSmem<Rows, RESIDENT>::bytes(n_strips);
+  }
+  static __host__ __device__ int bytes(int n_strips) { return SW_ALIGN + loop_bytes(n_strips) + RED; }
+};
+
+// K8 and K9: K2's maxima over int8 or packed int4 rows, each row's sums
+// times its scale, over the first `live` elements of each row (width for
+// int8 rows). q: [b, width] bf16, or the split halves [b, 2 * width].
+template <typename Rows, bool RESIDENT>
+__global__ void __launch_bounds__(THREADS, 2)
+    bucket_maxima_wgmma_kernel(const typename Rows::T* __restrict__ emb,
+                               const float* __restrict__ scales,
+                               const __nv_bfloat16* __restrict__ q, int64_t n_rows, int width,
+                               int live, int b, int64_t count, float* out, int64_t nb,
+                               int64_t buckets_per_cta) {
+  using Smem = WgmmaSmem<Rows, RESIDENT>;
+  extern __shared__ __align__(16) unsigned char smem_wg[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_wg);
+  unsigned char* const loop = smem_wg + ((SW_ALIGN - (raw & (SW_ALIGN - 1))) & (SW_ALIGN - 1));
+  float(*red)[MMA_QB] =
+      reinterpret_cast<float(*)[MMA_QB]>(loop + Smem::loop_bytes(live / Rows::COLS));
+
+  const BucketRange g(b, MMA_QB, count, buckets_per_cta);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gr = lane >> 2;  // accumulator row group
+  const int t = lane & 3;    // thread in group
+
+  // This thread's rows of a bucket: warp w holds rows 16w + gr + {0, 8}
+  // (warpgroup w / 4 its rows 64 * (w / 4) + ..., warp w % 4 of it 16 of
+  // them). Their scales are loaded a bucket ahead, so the epilogue does
+  // not wait out a load.
+  auto row_of = [&](int64_t bucket, int h2) { return (int)(bucket * RB) + 16 * warp + gr + 8 * h2; };
+  float next_scale[2];
+  auto load_scales = [&](int64_t bucket) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+      next_scale[h2] = row_of(bucket, h2) < count ? scales[row_of(bucket, h2)] : 0.0f;
+  };
+  load_scales(g.t_begin);
+
+  wgmma_tiles<Rows, RESIDENT>(
+      emb, q, n_rows, width, live, b, g.q0, (int)(g.t_end - g.t_begin), TileRange{g.t_begin},
+      loop, [&](int64_t bucket, const float(&acc)[32]) {
+        // Scale, mask rows at the watermark, then the max over the warp's
+        // 16 rows (lanes sharing t hold the same queries), then over the 8
+        // warps.
+        bool live_row[2];
+        float scale[2];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          live_row[h2] = row_of(bucket, h2) < count;
+          scale[h2] = next_scale[h2];
+        }
+        load_scales(bucket + 1);
+#pragma unroll
+        for (int n = 0; n < MMA_QB / 8; ++n) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float m = RAW_NEG;
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const float v = acc[4 * n + 2 * h2 + h] * scale[h2];
+              if (live_row[h2]) m = fmaxf(m, v);
+            }
+#pragma unroll
+            for (int off = 4; off <= 16; off <<= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+            if (gr == 0) red[warp][n * 8 + 2 * t + h] = m;
+          }
+        }
+        __syncthreads();
+        if (tid < MMA_QB && g.q0 + tid < b) {
+          float m = red[0][tid];
+#pragma unroll
+          for (int w = 1; w < THREADS / 32; ++w) m = fmaxf(m, red[w][tid]);
+          out[(int64_t)(g.q0 + tid) * nb + bucket] = m;
+        }
+        // The next strip's barrier orders these reads before the next
+        // bucket's writes to red.
+      });
+  g.write_dead<false>(out, nullptr, b, MMA_QB, nb);
+}
+
+template <typename Rows>
+int launch_wgmma(const int8_t* emb, const float* scales, const __nv_bfloat16* q,
+                 int64_t n_rows, int width, int live, int b, int64_t count,
+                 int64_t buckets_per_cta, int ctas_per_qb, float* out, cudaStream_t st) {
+  if (live <= 0 || live > width || live % Rows::COLS) return (int)cudaErrorInvalidValue;
+  const int n_strips = live / Rows::COLS;
   const dim3 grid((unsigned)(((b + MMA_QB - 1) / MMA_QB) * ctas_per_qb));
   // Resident queries where two CTAs still share an SM, else streamed.
-  int smem = MmaSmem<Rows, true, WITH_IDX>::bytes(qw);
-  auto kernel = bucket_maxima_mma_kernel<Rows, true, WITH_IDX>;
+  int smem = WgmmaSmem<Rows, true>::bytes(n_strips);
+  auto kernel = bucket_maxima_wgmma_kernel<Rows, true>;
   if (smem > SMEM_2CTA) {
-    smem = MmaSmem<Rows, false, WITH_IDX>::bytes(qw);
-    kernel = bucket_maxima_mma_kernel<Rows, false, WITH_IDX>;
+    smem = WgmmaSmem<Rows, false>::bytes(n_strips);
+    kernel = bucket_maxima_wgmma_kernel<Rows, false>;
   }
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  kernel<<<grid, THREADS, smem, st>>>(emb, scales, q, n_rows, width, b, count, out, out_idx,
+  kernel<<<grid, THREADS, smem, st>>>(emb, scales, q, n_rows, width, live, b, count, out,
+                                      n_rows / RB, buckets_per_cta);
+  return (int)cudaGetLastError();
+}
+
+template <bool WITH_IDX>
+int launch_mma(const __nv_bfloat16* emb, const __nv_bfloat16* q, int64_t n_rows, int width,
+               int b, int64_t count, int64_t buckets_per_cta, int ctas_per_qb, float* out,
+               int* out_idx, cudaStream_t st) {
+  const dim3 grid((unsigned)(((b + MMA_QB - 1) / MMA_QB) * ctas_per_qb));
+  // Resident queries where two CTAs still share an SM, else streamed.
+  int smem = MmaSmem<true, WITH_IDX>::bytes(width);
+  auto kernel = bucket_maxima_mma_kernel<true, WITH_IDX>;
+  if (smem > SMEM_2CTA) {
+    smem = MmaSmem<false, WITH_IDX>::bytes(width);
+    kernel = bucket_maxima_mma_kernel<false, WITH_IDX>;
+  }
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  kernel<<<grid, THREADS, smem, st>>>(emb, q, n_rows, width, b, count, out, out_idx,
                                       n_rows / RB, buckets_per_cta);
   return (int)cudaGetLastError();
 }
@@ -311,9 +425,8 @@ int launch_bucket_maxima(const void* emb, int dtype, const void* q, int64_t n_ro
                          cudaStream_t st) {
   if (dtype == 1) {
     if (query_block != MMA_QB) return (int)cudaErrorInvalidValue;
-    return launch_mma<RowsBf16, WITH_IDX>((const __nv_bfloat16*)emb, nullptr,
-                                          (const __nv_bfloat16*)q, n_rows, d_pad, b, count,
-                                          buckets_per_cta, ctas_per_qb, out, out_idx, st);
+    return launch_mma<WITH_IDX>((const __nv_bfloat16*)emb, (const __nv_bfloat16*)q, n_rows,
+                                d_pad, b, count, buckets_per_cta, ctas_per_qb, out, out_idx, st);
   }
   const float* e = (const float*)emb;
   const float* qf = (const float*)q;
@@ -363,19 +476,22 @@ extern "C" int tat_bucket_maxima(const void* emb, int dtype, const void* q,
 // ([n_rows, width] codes, width % 64 == 0) or a column-split packed int4
 // shadow ([n_rows, width] bytes, width % 32 == 0), each row's sums times
 // scales[row] ([n_rows] f32). q: bf16, [b, width] for kind 0 and the split
-// halves [b, 2 * width] for kind 1; every pointer 16-byte aligned. out:
-// [b, nb] f32 with nb = n_rows / 128; geometry as tat_bucket_maxima's
-// (query blocks of 64). Returns cudaGetLastError().
+// halves [b, 2 * width] for kind 1; every pointer 16-byte aligned. live:
+// the depth the product walks, width for kind 0; for kind 1 the packed
+// bytes that hold codes (ops/int4.py live_depth, a multiple of 32 up to
+// width), whose query columns past it must be zero. out: [b, nb] f32 with
+// nb = n_rows / 128; geometry as tat_bucket_maxima's (query blocks of 64).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a bad live.
 extern "C" int tat_bucket_maxima_q(const int8_t* emb, int kind,
                                    const float* scales, const void* q,
-                                   int64_t n_rows, int width, int b,
+                                   int64_t n_rows, int width, int live, int b,
                                    int64_t count, int64_t buckets_per_cta,
                                    int ctas_per_qb, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const __nv_bfloat16* qb = (const __nv_bfloat16*)q;
   if (kind == 0)
-    return tat::launch_mma<tat::RowsI8, false>(emb, scales, qb, n_rows, width, b, count,
-                                               buckets_per_cta, ctas_per_qb, out, nullptr, st);
-  return tat::launch_mma<tat::RowsI4, false>(emb, scales, qb, n_rows, width, b, count,
-                                             buckets_per_cta, ctas_per_qb, out, nullptr, st);
+    return tat::launch_wgmma<tat::RowsI8>(emb, scales, qb, n_rows, width, live, b, count,
+                                          buckets_per_cta, ctas_per_qb, out, st);
+  return tat::launch_wgmma<tat::RowsI4>(emb, scales, qb, n_rows, width, live, b, count,
+                                        buckets_per_cta, ctas_per_qb, out, st);
 }

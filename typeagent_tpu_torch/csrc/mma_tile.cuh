@@ -1,8 +1,10 @@
-// The tensor-core strip loop shared by the bucket kernels (bucket_maxima.cu:
-// K2, K2' on bf16 stores, K8, K9) and the int8 top-k scans (topk.cu: K6,
-// K7): a persistent CTA multiplies its 64-query block against a sequence
-// of 128-row tiles and hands each finished tile's accumulators to an
-// epilogue (bucket maxima, argmax, or a top-k fold).
+// The tensor-core strip loop shared by the bf16 bucket kernels
+// (bucket_maxima.cu: K2, K2' on bf16 stores) and the int8 top-k scans
+// (topk.cu: K6, K7), and the row types that it and its wgmma form
+// (wgmma_tile.cuh: K8, K9) stage: a persistent CTA multiplies its
+// 64-query block against a sequence of 128-row tiles and hands each
+// finished tile's accumulators to an epilogue (bucket maxima, argmax, or a
+// top-k fold).
 //
 // The product is mma.sync m16n8k16 bf16 -> f32. Each of the 8 warps owns
 // a 32-row x 32-query tile whose fragments come from shared memory by
@@ -28,7 +30,7 @@
 //     and stages their 32 low nibbles then their 32 high nibbles as one
 //     64-deep strip, which meets the matching 32 columns of each split
 //     query half (the JAX kernel's two half-width dots in one, up to f32
-//     summation order).
+//     summation order); only the wgmma loop stages them.
 //   The int8 and int4 rows convert while they stage, so their strips
 //   cannot ride a raw cp.async: they are loaded into registers a strip
 //   ahead and converted into a two-slot ring after the strip before is
@@ -74,31 +76,71 @@ __device__ __forceinline__ uint32_t bf16_pair(int lo, int hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t x) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&x);
+}
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// The packed int4 codes of bytes 2h, 2h + 1 of w as bf16 pairs: their low
+// nibbles as lo[h], their high nibbles as hi[h] (the JAX kernel's (p << 28)
+// >> 28 and p >> 4 on the sign-extended byte p), exactly and without int
+// -> float conversions (on an H100, K9 at 1M x 384 and b = 256 took
+// 0.858 ms with them, 0.829 without; for int8 codes, which need two
+// nibbles' worth of this, the conversions won). A nibble offset to u =
+// c + 8 is written into the mantissa of 128.0 (bf16 0x4300, whose 7
+// mantissa bits count units): 0x4300 | u is 136 + c, and 0x4300 | (u <<
+// 3) is 192 + 8c; one bf16 add or fma of small integers then gives c,
+// every step exact.
+__device__ __forceinline__ void i4x8_to_bf16(uint32_t w, uint32_t (&lo)[2], uint32_t (&hi)[2]) {
+  const uint32_t u = w ^ 0x88888888u;  // nibbles c + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t p = __byte_perm(u, 0, h ? 0x4342 : 0x4140);  // one byte per half
+    // (136 + c) - 136; (192 + 8c) / 8 - 24
+    lo[h] = as_u32(__hadd2(as_bf162((p & 0x000F000Fu) | 0x43004300u), as_bf162(0xC308C308u)));
+    hi[h] = as_u32(__hfma2(as_bf162(((p >> 1) & 0x00780078u) | 0x43004300u),
+                           as_bf162(0x3E003E00u), as_bf162(0xC1C0C1C0u)));
+  }
+}
+
+// Where 16-byte chunk c (bf16 columns 8c .. 8c + 7) of row r of a staged
+// strip lies in shared memory: here, rows of MMA_PITCH bf16 (the ldmatrix
+// reads stay free of bank conflicts); wgmma_tile.cuh's Sw128Strip is the
+// wgmma loop's swizzled layout.
+struct PitchStrip {
+  __nv_bfloat16* base;
+  __device__ __forceinline__ void* at(int r, int c) const { return base + r * MMA_PITCH + c * 8; }
+};
+
 // Row types of the loop. Each stages a strip of RB rows into a ring slot
-// as MMA_KC bf16 columns (rows at or past `limit` read as zero):
-// Regs::fetch starts the strip's loads and Regs::put finishes it after the
-// strip before has been multiplied. `width` is a row's length in elements
-// of T, `c0` the strip's first element; qcol(c0, x, width) is the query
-// column that strip column x meets.
+// (a PitchStrip or an Sw128Strip) as MMA_KC bf16 columns (rows at or past
+// `limit` read as zero): Regs::fetch starts the strip's loads and
+// Regs::put finishes it after the strip before has been multiplied.
+// `width` is a row's length in elements of T, `c0` the strip's first
+// element; qcol(c0, x, width) is the query column that strip column x
+// meets.
 
 // bf16 rows (K2, K2'): 16-byte cp.async copies, three stages in flight.
 struct RowsBf16 {
   using T = __nv_bfloat16;
   static constexpr int COLS = MMA_KC;  // row elements per strip
   static constexpr int STAGES = 3;
-  static constexpr bool SCALED = false;
   static constexpr bool SPLIT_QUERIES = false;
   static __device__ __forceinline__ int qcol(int c0, int x, int) { return c0 + x; }
   struct Regs {
-    __device__ __forceinline__ void fetch(__nv_bfloat16 (*dst)[MMA_PITCH], const T* __restrict__ src,
-                                          int64_t first, int64_t limit, int width, int c0) {
+    template <typename Strip>
+    __device__ __forceinline__ void fetch(Strip dst, const T* __restrict__ src, int64_t first,
+                                          int64_t limit, int width, int c0) {
       for (int i = threadIdx.x; i < RB * (MMA_KC / 8); i += THREADS) {
-        const int ri = i / (MMA_KC / 8), c8 = (i % (MMA_KC / 8)) * 8;
+        const int ri = i / (MMA_KC / 8), c = i % (MMA_KC / 8);
         const int64_t gr = first + ri;
-        cp_async16(&dst[ri][c8], gr < limit ? src + gr * width + c0 + c8 : src, gr < limit);
+        cp_async16(dst.at(ri, c), gr < limit ? src + gr * width + c0 + 8 * c : src, gr < limit);
       }
     }
-    __device__ __forceinline__ void put(__nv_bfloat16 (*)[MMA_PITCH]) const {}
+    template <typename Strip>
+    __device__ __forceinline__ void put(Strip) const {}
   };
 };
 
@@ -107,14 +149,14 @@ struct RowsI8 {
   using T = int8_t;
   static constexpr int COLS = MMA_KC;
   static constexpr int STAGES = 2;
-  static constexpr bool SCALED = true;
   static constexpr bool SPLIT_QUERIES = false;
   static __device__ __forceinline__ int qcol(int c0, int x, int) { return c0 + x; }
   struct Regs {
     static constexpr int LOADS = RB * (MMA_KC / 16) / THREADS;
     uint4 v[LOADS];
-    __device__ __forceinline__ void fetch(__nv_bfloat16 (*)[MMA_PITCH], const T* __restrict__ src,
-                                          int64_t first, int64_t limit, int width, int c0) {
+    template <typename Strip>
+    __device__ __forceinline__ void fetch(Strip, const T* __restrict__ src, int64_t first,
+                                          int64_t limit, int width, int c0) {
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
         const int i = threadIdx.x + u * THREADS;
@@ -123,7 +165,8 @@ struct RowsI8 {
                           : make_uint4(0, 0, 0, 0);
       }
     }
-    __device__ __forceinline__ void put(__nv_bfloat16 (*dst)[MMA_PITCH]) const {
+    template <typename Strip>
+    __device__ __forceinline__ void put(Strip dst) const {
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
         const int i = threadIdx.x + u * THREADS;
@@ -135,8 +178,8 @@ struct RowsI8 {
           o[2 * j] = bf16_pair((int8_t)(w[j] & 0xff), (int8_t)((w[j] >> 8) & 0xff));
           o[2 * j + 1] = bf16_pair((int8_t)((w[j] >> 16) & 0xff), (int8_t)(w[j] >> 24));
         }
-        *reinterpret_cast<uint4*>(&dst[ri][c16]) = make_uint4(o[0], o[1], o[2], o[3]);
-        *reinterpret_cast<uint4*>(&dst[ri][c16 + 8]) = make_uint4(o[4], o[5], o[6], o[7]);
+        *reinterpret_cast<uint4*>(dst.at(ri, c16 / 8)) = make_uint4(o[0], o[1], o[2], o[3]);
+        *reinterpret_cast<uint4*>(dst.at(ri, c16 / 8 + 1)) = make_uint4(o[4], o[5], o[6], o[7]);
       }
     }
   };
@@ -151,41 +194,34 @@ struct RowsI4 {
   using T = int8_t;
   static constexpr int COLS = MMA_KC / 2;
   static constexpr int STAGES = 2;
-  static constexpr bool SCALED = true;
   static constexpr bool SPLIT_QUERIES = true;
   static __device__ __forceinline__ int qcol(int c0, int x, int width) {
     return x < MMA_KC / 2 ? c0 + x : width + c0 + x - MMA_KC / 2;
   }
   struct Regs {
     uint4 v;
-    __device__ __forceinline__ void fetch(__nv_bfloat16 (*)[MMA_PITCH], const T* __restrict__ src,
-                                          int64_t first, int64_t limit, int width, int c0) {
+    template <typename Strip>
+    __device__ __forceinline__ void fetch(Strip, const T* __restrict__ src, int64_t first,
+                                          int64_t limit, int width, int c0) {
       static_assert(RB * 2 == THREADS, "one load per thread");
       const int64_t gr = first + threadIdx.x / 2;
       v = gr < limit ? *reinterpret_cast<const uint4*>(src + gr * width + c0 + (threadIdx.x % 2) * 16)
                      : make_uint4(0, 0, 0, 0);
     }
-    __device__ __forceinline__ void put(__nv_bfloat16 (*dst)[MMA_PITCH]) const {
+    template <typename Strip>
+    __device__ __forceinline__ void put(Strip dst) const {
       const int ri = threadIdx.x / 2, c16 = (threadIdx.x % 2) * 16;
       const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-      uint32_t lo[8], hi[8];
+      uint32_t lo[4][2], hi[4][2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          // Bytes 2h and 2h+1 of w[j]. On the sign-extended byte p these
-          // are the JAX kernel's (p << 28) >> 28 and p >> 4 in int32: the
-          // nibble's top bit is moved to bit 31 and shifted back
-          // arithmetically.
-          const int s0 = 16 * h, s1 = 16 * h + 8;
-          lo[2 * j + h] = bf16_pair((int)(w[j] << (28 - s0)) >> 28, (int)(w[j] << (28 - s1)) >> 28);
-          hi[2 * j + h] = bf16_pair((int)(w[j] << (24 - s0)) >> 28, (int)(w[j] << (24 - s1)) >> 28);
-        }
-      }
-      *reinterpret_cast<uint4*>(&dst[ri][c16]) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<uint4*>(&dst[ri][c16 + 8]) = make_uint4(lo[4], lo[5], lo[6], lo[7]);
-      *reinterpret_cast<uint4*>(&dst[ri][32 + c16]) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-      *reinterpret_cast<uint4*>(&dst[ri][32 + c16 + 8]) = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+      for (int j = 0; j < 4; ++j) i4x8_to_bf16(w[j], lo[j], hi[j]);  // byte k of w[j]: column 4j + k
+      *reinterpret_cast<uint4*>(dst.at(ri, c16 / 8)) = make_uint4(lo[0][0], lo[0][1], lo[1][0], lo[1][1]);
+      *reinterpret_cast<uint4*>(dst.at(ri, c16 / 8 + 1)) =
+          make_uint4(lo[2][0], lo[2][1], lo[3][0], lo[3][1]);
+      *reinterpret_cast<uint4*>(dst.at(ri, 4 + c16 / 8)) =
+          make_uint4(hi[0][0], hi[0][1], hi[1][0], hi[1][1]);
+      *reinterpret_cast<uint4*>(dst.at(ri, 4 + c16 / 8 + 1)) =
+          make_uint4(hi[2][0], hi[2][1], hi[3][0], hi[3][1]);
     }
   };
 };
@@ -224,7 +260,6 @@ __device__ __forceinline__ void mma_tiles(const typename Rows::T* __restrict__ e
                                           int width, int b, int q0, int n_tiles, Tiles tile_at,
                                           unsigned char* smem, Epilogue&& epi) {
   using Smem = MmaLoopSmem<Rows, RESIDENT>;
-  using Strip = __nv_bfloat16 (*)[MMA_PITCH];
   const int qw = Rows::SPLIT_QUERIES ? 2 * width : width;
   const int qp = RESIDENT ? Smem::q_pitch(qw) : MMA_PITCH;
   __nv_bfloat16* const qres = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -254,7 +289,7 @@ __device__ __forceinline__ void mma_tiles(const typename Rows::T* __restrict__ e
   // when Rows converts while staging) and moves on to the next strip.
   auto fetch_next = [&](typename Rows::Regs& regs) {
     __nv_bfloat16* const slot = ring + f_slot * Smem::SLOT;
-    regs.fetch(reinterpret_cast<Strip>(slot), emb, f_r0, n_rows, width, f_c0);
+    regs.fetch(PitchStrip{slot}, emb, f_r0, n_rows, width, f_c0);
     if constexpr (!RESIDENT) {
       __nv_bfloat16* const qs = slot + RB * MMA_PITCH;
       for (int i = tid; i < MMA_QB * (MMA_KC / 8); i += THREADS) {
@@ -277,13 +312,13 @@ __device__ __forceinline__ void mma_tiles(const typename Rows::T* __restrict__ e
         f_r0 += RB;
       }
     }
-    return reinterpret_cast<Strip>(slot);
+    return slot;
   };
 #pragma unroll
   for (int p = 0; p < Rows::STAGES - 1; ++p) {
     if (f < steps) {
       typename Rows::Regs regs;
-      regs.put(fetch_next(regs));
+      regs.put(PitchStrip{fetch_next(regs)});
     }
     cp_async_commit();
   }
@@ -315,7 +350,7 @@ __device__ __forceinline__ void mma_tiles(const typename Rows::T* __restrict__ e
     cp_async_wait<Rows::STAGES - 2>();
     __syncthreads();  // strip s is in its slot; the slot of strip s-1 is free
     typename Rows::Regs regs;
-    Strip pending = nullptr;
+    __nv_bfloat16* pending = nullptr;
     if (f < steps) pending = fetch_next(regs);
     cp_async_commit();
 
@@ -336,7 +371,7 @@ __device__ __forceinline__ void mma_tiles(const typename Rows::T* __restrict__ e
         for (int n = 0; n < 4; ++n)
           mma_bf16_16x8x16(acc[m][n], a[m], bq[n >> 1][2 * (n & 1)], bq[n >> 1][2 * (n & 1) + 1]);
     }
-    if (pending != nullptr) regs.put(pending);
+    if (pending != nullptr) regs.put(PitchStrip{pending});
 
     c_slot = c_slot + 1 == Rows::STAGES ? 0 : c_slot + 1;
     c_c0 += Rows::COLS;

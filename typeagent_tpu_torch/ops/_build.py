@@ -24,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 KERNEL_SOURCES = ("topk.cu", "bucket_maxima.cu", "rescore.cu", "tile_list.cu")
-KERNEL_HEADERS = ("tile.cuh", "mma_tile.cuh")
+KERNEL_HEADERS = ("tile.cuh", "mma_tile.cuh", "wgmma_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -137,7 +137,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tat_topk_merge": [p, p, i32, i32, i32, p, p, p],
         # (..., count, buckets_per_cta, ctas_per_qb[, query_block], out, ...)
         "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, i64, i32, i32, p, p, p],
-        "tat_bucket_maxima_q": [p, i32, p, p, i64, i32, i32, i64, i64, i32, p, p],
+        # (emb, kind, scales, q, n_rows, width, live, b, count, ...)
+        "tat_bucket_maxima_q": [p, i32, p, p, i64, i32, i32, i32, i64, i64, i32, p, p],
         "tat_rescore": [p, i32, p, p, i64, i32, i32, i32, p, p],
         # The scoped scans' tile lists: (table, rows, count | mask, count,
         # scratch words), then tiles, n_tiles, stream.

@@ -12,11 +12,14 @@ searches the same in both:
     128-row buckets and the whole exact2 phase 2 carry over unchanged.
   * K9 ``bucket_maxima_q4`` (``csrc/bucket_maxima.cu``, the int4 instance
     of K2's tensor-core template) unpacks the sign-extended nibbles into
-    bf16 while staging each strip and takes one depth ``2*dh`` product
-    against the split query halves (:func:`split_pad_queries`), which is
-    the JAX kernel's two half-width dots; then the per-row scale, the
-    watermark mask and the 128-row bucket maxima. Its plain version
-    ``bucket_maxima_q4_plain`` sits beside it.
+    bf16 while staging each strip and takes the JAX kernel's two
+    half-width dots against the split query halves
+    (:func:`split_pad_queries`) in one product; then the per-row scale,
+    the watermark mask and the 128-row bucket maxima. Given the rows'
+    width ``d``, both halves' dots cover only the ``live_depth(d)`` packed
+    bytes that hold codes: the padding past them meets query columns that
+    :func:`split_pad_queries` zeroes, so the maxima are the whole width's.
+    Its plain version ``bucket_maxima_q4_plain`` sits beside it.
 
 The selection feeds the exact2 phase 2 (:mod:`.topk`): the top-B buckets
 per query are rescored exactly from the full-precision buffer (K3), so the
@@ -41,6 +44,7 @@ __all__ = [
     "quantize_rows_int4_device",
     "quantize_rows_int4",
     "split_pad_queries",
+    "live_depth",
     "adopt_int4_shadow",
     "bucket_maxima_q4",
     "bucket_maxima_q4_plain",
@@ -55,6 +59,7 @@ __all__ = [
 _CERT_EPS_I4 = 5e-2
 _I4_SLACK = 14
 _K_LANES = 128
+_STRIP_BYTES = 32  # packed bytes of a row in one K9 strip
 
 # XLA compiles the JAX device quantizer's ``max / 7.0`` into a multiply by
 # the f32 reciprocal, which differs from numpy's division by one ulp in
@@ -65,6 +70,15 @@ _INV_7 = float(np.float32(1.0 / 7.0))
 def _half_pad(d: int) -> int:
     half = (d + 1) // 2
     return -(-half // _K_LANES) * _K_LANES
+
+
+def live_depth(d: int) -> int:
+    """The packed bytes of a row of width ``d`` that K9's product walks:
+    ``ceil(d/2)`` rounded up to a 32-byte strip, at most ``_half_pad(d)``
+    (192 of 256 at d = 384, 64 of 128 at d = 100). Past them every byte
+    meets query columns that :func:`split_pad_queries` zeroes in both
+    halves."""
+    return -(-((d + 1) // 2) // _STRIP_BYTES) * _STRIP_BYTES
 
 
 def _pack_codes(codes: torch.Tensor, dh: int) -> torch.Tensor:
@@ -138,24 +152,48 @@ def adopt_int4_shadow(
     return torch.from_numpy(packed).to(device), torch.from_numpy(scales).to(device)
 
 
-def _unpack(packed: torch.Tensor) -> torch.Tensor:
-    """[m, dh] packed bytes -> [m, 2*dh] f32 codes ``[lo | hi]``, with the
-    JAX kernel's int32 shifts on the sign-extended bytes."""
+def _nibbles(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[m, w] packed bytes -> the (lo, hi) [m, w] f32 codes, with the JAX
+    kernel's int32 shifts on the sign-extended bytes."""
     p = packed.to(torch.int32)
-    return torch.cat([(p << 28) >> 28, p >> 4], dim=1).float()
+    return ((p << 28) >> 28).float(), (p >> 4).float()
+
+
+def _unpack(packed: torch.Tensor) -> torch.Tensor:
+    """[m, dh] packed bytes -> [m, 2*dh] f32 codes ``[lo | hi]``."""
+    return torch.cat(_nibbles(packed), dim=1)
+
+
+def _live_of(packed: torch.Tensor, d: int | None) -> int:
+    """The packed bytes K9 walks: the whole width for ``d=None``, else
+    :func:`live_depth` of rows of width ``d`` (which must pack to this
+    shadow's width)."""
+    dh = packed.shape[1]
+    if d is None:
+        return dh
+    if _half_pad(d) != dh:
+        raise ValueError(f"packed shadow width {dh} is not _half_pad({d}) = {_half_pad(d)}")
+    return live_depth(d)
 
 
 def bucket_maxima_q4_plain(
-    packed: torch.Tensor, scales: torch.Tensor, queries_split: torch.Tensor, count: int
+    packed: torch.Tensor, scales: torch.Tensor, queries_split: torch.Tensor, count: int,
+    *, d: int | None = None,
 ) -> torch.Tensor:
     """Plain version of K9: ``[b, n_rows/128]`` f32 maximum per 128-row
-    bucket of ``(queries_split . [lo | hi]) * scale`` (the bf16 split
-    queries against the exactly upcast codes, f32 sums), -3.0 for rows at
-    or past ``count``."""
+    bucket of ``(q_lo . lo + q_hi . hi) * scale`` (the bf16 split query
+    halves against the exactly upcast codes, f32 sums), -3.0 for rows at
+    or past ``count``. Each half's dot covers the first
+    ``live_depth(d)`` packed bytes, as the kernel's does (``d=None``: the
+    whole width, padding included)."""
+    dh = packed.shape[1]
+    live = _live_of(packed, d)
     q = queries_split.float()
+    q_lo, q_hi = q[:, :live], q[:, dh : dh + live]
 
     def raw_of(start, stop):
-        raw = (q @ _unpack(packed[start:stop]).T) * scales[start:stop][None, :]
+        lo, hi = _nibbles(packed[start:stop, :live])
+        raw = (q_lo @ lo.T + q_hi @ hi.T) * scales[start:stop][None, :]
         ids = torch.arange(start, stop, device=packed.device)
         return raw.masked_fill(ids[None, :] >= count, topk._RAW_NEG)
 
@@ -193,14 +231,16 @@ def _check_q4_operands(
 
 
 def bucket_maxima_q4(
-    packed: torch.Tensor, scales: torch.Tensor, queries_split: torch.Tensor, count: int
+    packed: torch.Tensor, scales: torch.Tensor, queries_split: torch.Tensor, count: int,
+    *, d: int | None = None,
 ) -> torch.Tensor:
     """K9 (``csrc/bucket_maxima.cu``), as :func:`bucket_maxima_q4_plain`;
-    ``queries_split`` comes from :func:`split_pad_queries`."""
+    ``queries_split`` comes from :func:`split_pad_queries` (of width
+    ``d``, when given: then the product skips the padding)."""
     if packed.device.type == "cpu":
-        return bucket_maxima_q4_plain(packed, scales, queries_split, count)
+        return bucket_maxima_q4_plain(packed, scales, queries_split, count, d=d)
     _check_q4_operands(packed, scales, queries_split)
-    out = topk._launch_bucket_maxima_q(1, packed, scales, queries_split, count)
+    out = topk._launch_bucket_maxima_q(1, packed, scales, queries_split, count, _live_of(packed, d))
     topk.BUCKET_MAXIMA_Q4_LAUNCHES.add()
     return out
 
@@ -227,7 +267,7 @@ def topk_program_exact2_i4(
         raise ValueError(
             f"packed shadow width {packed.shape[1]} is not _half_pad({d}) = {_half_pad(d)}"
         )
-    bvals = bucket_maxima_q4(packed, scales, split_pad_queries(queries, d), count)
+    bvals = bucket_maxima_q4(packed, scales, split_pad_queries(queries, d), count, d=d)
     return topk._exact2_phase2_rescore(
         emb, queries, count, bvals, k=k, B=B, eps=_CERT_EPS_I4
     )

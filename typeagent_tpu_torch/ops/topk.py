@@ -744,20 +744,25 @@ def bucket_maxima_q_plain(
 
 
 def _launch_bucket_maxima_q(
-    kind: int, emb: torch.Tensor, scales: torch.Tensor, q_bf16: torch.Tensor, count: int
+    kind: int, emb: torch.Tensor, scales: torch.Tensor, q_bf16: torch.Tensor, count: int,
+    live: int | None = None,
 ) -> torch.Tensor:
     """Launch ``tat_bucket_maxima_q`` of ``csrc/bucket_maxima.cu``: K8
     (``kind`` 0, int8 codes, ``q_bf16`` [b, width]) or K9 (``kind`` 1,
-    packed int4 bytes, ``q_bf16`` the split halves [b, 2*width]). The
-    caller has checked device, dtype and shapes; this checks the strip
-    layout the kernel stages with 16-byte loads."""
+    packed int4 bytes, ``q_bf16`` the split halves [b, 2*width]), the
+    product walking the first ``live`` elements of each row (``None``: the
+    whole width). The caller has checked device, dtype and shapes; this
+    checks the strip layout the kernel stages with 16-byte loads."""
     n_rows, width = emb.shape
     strip = 64 if kind == 0 else 32
+    live = width if live is None else live
     if width % strip or emb.data_ptr() % 16 or q_bf16.data_ptr() % 16:
         raise ValueError(
             f"bucket maxima over a {'packed int4' if kind else 'int8'} shadow needs "
             f"width % {strip} == 0 and 16-byte aligned operands, got width {width}"
         )
+    if not 0 < live <= width or live % strip:
+        raise ValueError(f"live depth {live} is not a multiple of {strip} in (0, {width}]")
     b = q_bf16.shape[0]
     out = torch.empty((b, n_rows // _BUCKET_ROWS), dtype=torch.float32, device=emb.device)
     count = max(0, min(int(count), n_rows))
@@ -765,7 +770,7 @@ def _launch_bucket_maxima_q(
     _build.check(
         _build.kernels().tat_bucket_maxima_q(
             emb.data_ptr(), kind, scales.data_ptr(), q_bf16.data_ptr(), n_rows, width,
-            b, count, per, ctas, out.data_ptr(), _stream(emb),
+            live, b, count, per, ctas, out.data_ptr(), _stream(emb),
         ),
         "int4 bucket maxima" if kind else "int8 bucket maxima",
     )
