@@ -83,6 +83,30 @@ Phases, one JSON line each:
      quantize_rows_int4_device, bf16 (as the probe) and f32 rescore
      buffers, slack 2, 6 and 14: recall@10, the certificate rate (a
      heuristic, not a proof), batch-256 latency.
+ 12. a conversation on the card through the port's entry points:
+     ``create_conversation(None, ConversationMessage, settings=...)`` with
+     the test embedding model (d = 384) on the default device, 150,000
+     one-chunk messages made from the seed (8-20 words of a 5,000-word
+     vocabulary, 50 speakers, 1-3 recipients, ascending timestamps) and a
+     deterministic extractor (one entity, two topics per message), ingested
+     by 15 calls of ``add_messages_with_indexing``; 150,000 chunk rows put
+     the message index past EXACT2_MIN_ROWS, on the K2 + K3 route. Then 64
+     single-question ``lookup_messages`` calls (b = 1), one batch of 256
+     query embeddings through the index's batched store lookup, and a
+     related-terms expansion of 256 terms at the default 50 matches (k > 32:
+     the materialized route, counted); every answer against a plain f32
+     top-k over the index's own rows (ties within 2e-6); K2 and K3 must have
+     launched. K2 and K3 are then held against their plain versions on the
+     index's own operands (the 150,000-row bf16 shadow and f32 rows, b = 8
+     and 256) and timed in turns with them (CUDA events, beside their
+     bounds). A ``_data.json`` + ``_embeddings.bin`` snapshot is written to
+     a temporary directory and read into a new conversation on the card,
+     which must answer the same. The corpus, extractor and builders are
+     those of ``tests/test_torch_conv_corpus.py``. Printed: sizes, ingest
+     rate, the route per lookup kind, host ms (b = 1 p50/p90 through the
+     async route and called directly, b = 256), launches, K2 and K3 device
+     ms, certificate misses, snapshot seconds and bytes, peak device
+     memory, the card.
 
 Each corpus search is checked three ways: the API's hits are the kernel's
 output on the same operands, that output agrees with the plain version
@@ -162,6 +186,14 @@ I4_SLACKS = (2, 6, 14)
 PEAK_F32 = 67e12
 PEAK_BF16 = 989e12
 HBM_BPS = 3.35e12
+# Phase 12: a conversation past EXACT2_MIN_ROWS chunk rows (the message
+# index's large-store route), ingested in 15 calls.
+CONV_MESSAGES = 150_000
+CONV_BATCHES = 15
+CONV_VOCAB = 5_000
+CONV_SPEAKERS = 50
+CONV_SINGLE = 64  # b = 1 lookups: half message texts, half random words
+CONV_BATCH = 256
 
 
 def emit(obj: dict) -> None:
@@ -189,6 +221,329 @@ def normed(rng: np.random.Generator, n: int, d: int) -> np.ndarray:
     m = rng.standard_normal((n, d), dtype=np.float32)
     m /= np.linalg.norm(m, axis=1, keepdims=True)
     return m
+
+
+def cuda_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(timer, kernel_fn, plain_fn) -> tuple[float, float]:
+    """Plain, kernel, kernel, plain; mean of each pair."""
+    p1 = timer(plain_fn)
+    k1 = timer(kernel_fn)
+    k2 = timer(kernel_fn)
+    p2 = timer(plain_fn)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def bound_of(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The least time the card could take: operations over the peak of
+    their type or bytes over the memory rate, whichever is larger."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def scan_bound(rows: int, d_pad: int, itemsize: int, b: int, out_bytes: int, peak: float,
+               extra_bytes: int = 0) -> tuple[float, str]:
+    """A scan of ``rows`` rows against b f32 queries: each row read
+    once (plus ``extra_bytes``: scales, a mask), the queries once, the
+    output written once; 2*b*rows*d_pad operations."""
+    nbytes = rows * d_pad * itemsize + extra_bytes + b * d_pad * 4 + out_bytes
+    return bound_of(2.0 * b * rows * d_pad, nbytes, peak)
+
+
+def rescore_bound(ids, b: int, d_pad: int) -> tuple[float, str]:
+    """K3's bound: each distinct selected bucket read once (the same bucket
+    chosen by several queries comes from L2), the queries, the ids and the
+    [b, B*128] raw scores once; 2*b*B*128*d_pad f32 operations."""
+    import torch
+
+    n_sel, distinct = ids.shape[1], torch.unique(ids).numel()
+    return bound_of(2.0 * b * n_sel * 128 * d_pad,
+                    distinct * 128 * d_pad * 4 + b * d_pad * 4 + ids.numel() * 4 + b * n_sel * 128 * 4,
+                    PEAK_F32)
+
+
+async def conversation_phase(dev, n_messages: int = CONV_MESSAGES, batches: int = CONV_BATCHES):
+    """Phase 12: a conversation built and searched through the port's entry
+    points on the card (create_conversation -> add_messages_with_indexing ->
+    index lookups -> snapshot -> reload). Returns the phase's line and the
+    launches of its lookups."""
+    import tempfile
+
+    import torch
+
+    from typeagent_tpu_torch import create_conversation
+    from typeagent_tpu_torch.knowpro.universal_message import (
+        ConversationMessage,
+        ConversationMessageMeta,
+    )
+    from typeagent_tpu_torch.ops import topk
+    from typeagent_tpu_torch.utils.metrics import METRICS
+    from typeagent_tpu_torch.vectorstore import EXACT2_MIN_ROWS
+
+    # The corpus, extractor and builders of the port's conversation tests
+    # (a module that imports no JAX), at this phase's sizes.
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_conv_corpus import (
+        ChatConversation,
+        ingest,
+        make_corpus,
+        metadata_semrefs,
+        port_settings,
+        write_snapshot,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    raw = make_corpus(SEED, n_messages, vocab=CONV_VOCAB, speakers=CONV_SPEAKERS)
+    rng = np.random.default_rng(SEED + 12)  # the probes
+    conv_settings = port_settings(D_MAIN, device=None)  # the card: the default device
+    require(conv_settings.device.type == "cuda", f"conversation settings on {conv_settings.device}")
+    t0 = time.perf_counter()
+    conv, results = await ingest(create_conversation, conv_settings, ConversationMessage,
+                                 ConversationMessageMeta, raw, batches)
+    ingest_s = time.perf_counter() - t0
+    added = {key: sum(getattr(r, key) for r in results)
+             for key in ("messages_added", "chunks_added", "semrefs_added")}
+    stages = {name: round(METRICS.stats(f"span.ingest.batch/{name}").total_s, 3)
+              for name in ("messages", "metadata", "extract", "indexes")}
+    # Metadata: the speaker and each recipient (entities) and one "say"
+    # action per recipient; the extractor: one entity and two topics.
+    semrefs_expected = metadata_semrefs(raw) + 3 * n_messages
+    require(added == {"messages_added": n_messages, "chunks_added": n_messages,
+                      "semrefs_added": semrefs_expected}, f"conversation ingest: {added}")
+    sec = conv.secondary_indexes
+    mindex = sec.message_index
+    fuzzy = sec.term_to_related_terms_index.fuzzy_index
+    store = mindex.text_location_index._embedding_index._vector_base
+    require(await mindex.size() == n_messages and await sec.timestamp_index.size() == n_messages,
+            "conversation: message or timestamp index short")
+    related_rows = await fuzzy.size()
+
+    # The plain reference: an f32 top-k over each index's own rows, on the card.
+    msg_rows = torch.from_numpy(store.host_rows(0, n_messages)).to(dev)
+    term_rows = torch.from_numpy(fuzzy._vectorbase.host_rows(0, related_rows)).to(dev)
+
+    def plain_topk(rows, queries: np.ndarray, k: int):
+        raw_scores = torch.from_numpy(np.ascontiguousarray(queries, dtype=np.float32)).to(dev) @ rows.T
+        vals, idx = torch.topk(((raw_scores + 1) * 0.5).clamp(0, 1), k, dim=1)
+        return vals.cpu().numpy(), idx.cpu().numpy(), ((raw_scores + 1) * 0.5).clamp(0, 1)
+
+    def check_hits(got, ref_v, ref_i, min_score, what):
+        """(ordinal, score) hits against the plain top-k row: the same count
+        above min_score, scores within TOL_F32, any ordinal the plain top-k
+        lacks tying with its last score within TOL_F32."""
+        keep = ref_v >= min_score
+        require(len(got) == int(keep.sum()), f"{what}: {len(got)} hits, plain {int(keep.sum())}")
+        if not got:
+            return 0.0
+        g_scores = np.array([s for _, s in got])
+        err = float(np.abs(g_scores - ref_v[: len(got)]).max())
+        require(err <= TOL_F32, f"{what}: score error {err}")
+        ref_set = set(ref_i[keep].tolist())
+        for item, score in got:
+            require(item in ref_set or score >= ref_v[len(got) - 1] - TOL_F32, f"{what}: {item} not in plain top-k")
+        return err
+
+    def counts_since_reset():
+        counts = topk.launch_counts()
+        topk.reset_launch_counts()
+        return counts
+
+    min_msg = conv_settings.message_text_index_settings.embedding_index_settings.min_score
+    probe = [raw[int(i)]["text"] for i in rng.integers(0, n_messages, CONV_SINGLE // 2)]
+    probe += [" ".join(f"word{w}" for w in rng.integers(0, CONV_VOCAB, 12)) for _ in range(CONV_SINGLE // 2)]
+    out = {"phase": 12, "messages": n_messages, "batches": batches, "d": D_MAIN,
+           "semrefs": await conv.semantic_refs.size(), "related_terms_rows": related_rows,
+           "message_rows": await mindex.size(), "ingest_s": round(ingest_s, 3),
+           "ingest_stage_s": stages,
+           "messages_per_s": round(n_messages / ingest_s, 1),
+           "exact2_min_rows": EXACT2_MIN_ROWS}
+    max_err = 0.0
+    cert_q0 = METRICS.counters.get("vectorstore.cert_queries", 0)
+    cert_m0 = METRICS.counters.get("vectorstore.cert_misses", 0)
+
+    # (a) b = 1: 64 single-question lookups. The first, timed apart, moves
+    # the index's rows to the card and starts the batcher.
+    t = time.perf_counter()
+    await mindex.lookup_messages(probe[0])
+    first_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    topk.reset_launch_counts()
+    single, single_ms = [], []
+    for text in probe:
+        t = time.perf_counter()
+        hits = await mindex.lookup_messages(text)
+        single_ms.append((time.perf_counter() - t) * 1e3)
+        single.append([(h.message_ordinal, h.score) for h in hits])
+    counts_b1 = counts_since_reset()
+    q_single = np.stack([await mindex.generate_embedding(t) for t in probe])
+    ref_v, ref_i, _ = plain_topk(msg_rows, q_single, 10)
+    for r, hits in enumerate(single):
+        max_err = max(max_err, check_hits(hits, ref_v[r], ref_i[r], min_msg, f"b=1 lookup {r}"))
+    for r in range(CONV_SINGLE // 2):  # a message's own text finds it first
+        require(single[r] and single[r][0][1] >= 1 - 1e-6, f"b=1 lookup {r}: own message not first")
+    # The same lookups without the async route: the store's sync batch call
+    # on each embedding (the store's LookupBatcher and event loop bypassed).
+    direct_ms = []
+    for r, text in enumerate(probe):
+        t = time.perf_counter()
+        embedding = await mindex.generate_embedding(text)
+        hits = store.fuzzy_lookup_embeddings_batch(embedding[None, :], max_hits=10, min_score=min_msg)[0]
+        direct_ms.append((time.perf_counter() - t) * 1e3)
+        require([(h.item, h.score) for h in hits] == single[r], f"b=1 direct lookup {r} differs")
+    topk.reset_launch_counts()
+
+    # (b) one batch of 256 query embeddings through the index's batched lookup.
+    words = [" ".join(f"word{w}" for w in rng.integers(0, CONV_VOCAB, 10)) for _ in range(CONV_BATCH)]
+    q_batch = np.stack(await mindex.text_location_index.generate_embeddings(words))
+    emb_index = mindex.text_location_index._embedding_index
+    batch = emb_index.get_indexes_of_nearest_batch(q_batch, max_matches=10, min_score=0.0)
+    counts_b256 = counts_since_reset()
+    ref_v, ref_i, _ = plain_topk(msg_rows, q_batch, 10)
+    for r, hits in enumerate(batch):
+        max_err = max(max_err, check_hits([(h.item, h.score) for h in hits], ref_v[r], ref_i[r], 0.0,
+                                          f"b=256 lookup {r}"))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        emb_index.get_indexes_of_nearest_batch(q_batch, max_matches=10, min_score=0.0)
+    batch_ms = (time.perf_counter() - t) * 100
+    topk.reset_launch_counts()
+
+    # (c) related-terms expansion of 256 terms at the default 50 matches.
+    term_texts = [f"word{w}" for w in rng.integers(0, CONV_VOCAB, CONV_BATCH - 16)]
+    term_texts += [f"speaker{s}" for s in range(16)]
+    t = time.perf_counter()
+    expanded = await fuzzy.lookup_terms(term_texts)
+    terms_ms = (time.perf_counter() - t) * 1e3
+    counts_terms = counts_since_reset()
+    rt_settings = conv_settings.related_term_index_settings.embedding_index_settings
+    q_terms = np.stack([await fuzzy._vectorbase.get_embedding(t) for t in term_texts])
+    # The store's sync batch call alone (no embedding, event loop or Term
+    # objects): the device route and the ScoredInt rows.
+    t = time.perf_counter()
+    store_hits = fuzzy._vectorbase.fuzzy_lookup_embeddings_batch(
+        q_terms, max_hits=rt_settings.max_matches, min_score=rt_settings.min_score)
+    terms_store_ms = (time.perf_counter() - t) * 1e3
+    require([[fuzzy._texts[h.item] for h in r] for r in store_hits] == [[x.text for x in r] for r in expanded],
+            "related terms: the store's hits differ")
+    topk.reset_launch_counts()
+    ref_v, _, all_scores = plain_topk(term_rows, q_terms, rt_settings.max_matches)
+    row_of = {}
+    for i, text in enumerate(fuzzy._texts):
+        row_of.setdefault(text, i)
+    all_scores = all_scores.cpu().numpy()
+    for r, terms in enumerate(expanded):
+        keep = ref_v[r] >= rt_settings.min_score
+        require(len(terms) == int(keep.sum()), f"terms {r}: {len(terms)} of {int(keep.sum())}")
+        for term in terms:  # each weight is its row's score and inside the plain top-k
+            err = abs(term.weight - all_scores[r, row_of[term.text]])
+            max_err = max(max_err, err)
+            require(err <= TOL_F32 and term.weight >= ref_v[r][len(terms) - 1] - TOL_F32,
+                    f"terms {r}: {term.text} {term.weight}")
+    del msg_rows, term_rows
+
+    # The message index's lookups ran K2 + K3 (the store's large-store route).
+    for what, counts in (("b=1", counts_b1), ("b=256", counts_b256)):
+        require(counts["bucket_maxima"] > 0 and counts["rescore"] > 0, f"conversation {what}: route {counts}")
+    cert_q = METRICS.counters.get("vectorstore.cert_queries", 0) - cert_q0
+    cert_m = METRICS.counters.get("vectorstore.cert_misses", 0) - cert_m0
+
+    # K2 and K3 on the card at this index's shapes, each against its plain
+    # version on the same operands and timed in turns with it (CUDA
+    # events): b = 8 (a single question's padded batch) and b = 256. These
+    # launches come after the lookups' counts were read.
+    device = {}
+    with store._dispatch_view() as (buf, _, count):
+        shadow = store._shadow(buf, count)
+        d_pad, nb = buf.shape[1], shadow.shape[0] // 128
+        n_sel = min(10 + topk._HYBRID_SLACK, nb)
+        for b, queries in ((8, q_single[:1]), (256, q_batch)):
+            qd = store._pad_queries(queries)
+            require(qd.shape[0] == b, f"padded batch {qd.shape[0]}, expected {b}")
+            maxima = topk.bucket_maxima(shadow, qd, count)
+            err2 = (maxima - topk.bucket_maxima_plain(shadow, qd, count)).abs().max().item()
+            require(err2 <= TOL_BF16, f"conversation K2 b={b}: error {err2} > {TOL_BF16}")
+            ids = torch.topk(maxima, n_sel, dim=1).indices.to(torch.int32).contiguous()
+            err3 = (topk.rescore_selected(buf, qd, ids) - topk.rescore_selected_plain(buf, qd, ids)).abs().max().item()
+            require(err3 <= TOL_F32, f"conversation K3 b={b}: error {err3} > {TOL_F32}")
+            for name, err, timed, bound in (
+                ("bucket_maxima", err2,
+                 in_turns(cuda_ms, lambda: topk.bucket_maxima(shadow, qd, count),
+                          lambda: topk.bucket_maxima_plain(shadow, qd, count)),
+                 scan_bound(count, d_pad, 2, b, b * nb * 4, PEAK_BF16)),
+                ("rescore", err3,
+                 in_turns(cuda_ms, lambda: topk.rescore_selected(buf, qd, ids),
+                          lambda: topk.rescore_selected_plain(buf, qd, ids)),
+                 rescore_bound(ids, b, d_pad)),
+            ):
+                device[f"{name}_b{b}"] = {"ms": timed[0], "plain_ms": timed[1], "bound_ms": bound[0],
+                                          "bound_by": bound[1], "max_abs_err": err}
+    del shadow, maxima, ids, qd
+    topk.reset_launch_counts()
+
+    # Snapshot: write, read into a new conversation on the card, ask again.
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "chat")
+        t = time.perf_counter()
+        await write_snapshot(conv, prefix)
+        write_s = time.perf_counter() - t
+        sizes = {sfx: os.path.getsize(prefix + sfx) for sfx in ("_data.json", "_embeddings.bin")}
+        gc.collect()
+        t = time.perf_counter()
+        again = await ChatConversation.read_from_file(prefix, port_settings(D_MAIN, device=None))
+        read_s = time.perf_counter() - t
+    require(await again.messages.size() == n_messages
+            and await again.semantic_refs.size() == out["semrefs"], "reloaded conversation: sizes")
+    reloaded = [[(h.message_ordinal, h.score) for h in await again.secondary_indexes.message_index.lookup_messages(text)]
+                for text in probe]
+    require(reloaded == single, "reloaded conversation: b=1 lookups differ")
+    again_index = again.secondary_indexes.message_index.text_location_index._embedding_index
+    again_batch = again_index.get_indexes_of_nearest_batch(q_batch, max_matches=10, min_score=0.0)
+    require([[(h.item, h.score) for h in r] for r in again_batch] == [[(h.item, h.score) for h in r] for r in batch],
+            "reloaded conversation: b=256 lookups differ")
+    again_terms = await again.secondary_indexes.term_to_related_terms_index.fuzzy_index.lookup_terms(term_texts)
+    require([[(t.text, t.weight) for t in r] for r in again_terms] == [[(t.text, t.weight) for t in r] for r in expanded],
+            "reloaded conversation: related terms differ")
+    topk.reset_launch_counts()
+
+    b1 = np.array(single_ms)
+    out.update({
+        "routes": {
+            "lookup_messages_b1": "exact2h (K2 on the bf16 shadow + K3)" if counts_b1["bucket_maxima"] else "K1",
+            "batch_b256": "exact2h (K2 on the bf16 shadow + K3)" if counts_b256["bucket_maxima"] else "K1",
+            "related_terms_k50": "materialized [b, n] + torch.topk" if counts_terms["materialized_topk"]
+            else "kernels"},
+        "launches": {"b1": counts_b1, "b256": counts_b256, "related_terms": counts_terms},
+        "materialized_topk": counts_terms["materialized_topk"] + counts_b1["materialized_topk"]
+        + counts_b256["materialized_topk"],
+        "cert_queries": cert_q, "cert_misses": cert_m,
+        "b1_ms_p50": float(np.percentile(b1, 50)), "b1_ms_p90": float(np.percentile(b1, 90)),
+        "b1_first_ms": first_ms,
+        "b1_direct_ms_p50": float(np.percentile(direct_ms, 50)),
+        "b1_direct_ms_p90": float(np.percentile(direct_ms, 90)),
+        "b256_ms": batch_ms, "related_terms_b256_ms": terms_ms,
+        "related_terms_b256_store_ms": terms_store_ms, "device_ms": device,
+        "max_score_err": max_err, "snapshot_write_s": round(write_s, 3),
+        "snapshot_read_s": round(read_s, 3),
+        "snapshot_bytes": sizes, "reloaded_identical": True,
+        "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+    })
+    total = {name: counts_b1[name] + counts_b256[name] + counts_terms[name] for name in counts_b1}
+    return out, total
 
 
 def main() -> int:
@@ -235,18 +590,6 @@ def main() -> int:
     def padded_store(m: np.ndarray, n_pad: int, dtype) -> torch.Tensor:
         return pad_dev(to_dev(m), n_pad, dtype)
 
-    def cuda_ms(fn, iters: int = 10) -> float:
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
     def host_ms(fn, iters: int = 10) -> float:
         fn()
         torch.cuda.synchronize()
@@ -255,28 +598,6 @@ def main() -> int:
             fn()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1000 / iters
-
-    def in_turns(timer, kernel_fn, plain_fn) -> tuple[float, float]:
-        """Plain, kernel, kernel, plain; mean of each pair."""
-        p1 = timer(plain_fn)
-        k1 = timer(kernel_fn)
-        k2 = timer(kernel_fn)
-        p2 = timer(plain_fn)
-        return (k1 + k2) / 2, (p1 + p2) / 2
-
-    def bound_of(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
-        """The least time the card could take: operations over the peak of
-        their type or bytes over the memory rate, whichever is larger."""
-        ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
-        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-    def scan_bound(rows: int, d_pad: int, itemsize: int, b: int, out_bytes: int, peak: float,
-                   extra_bytes: int = 0) -> tuple[float, str]:
-        """A scan of ``rows`` rows against b f32 queries: each row read
-        once (plus ``extra_bytes``: scales, a mask), the queries once, the
-        output written once; 2*b*rows*d_pad operations."""
-        nbytes = rows * d_pad * itemsize + extra_bytes + b * d_pad * 4 + out_bytes
-        return bound_of(2.0 * b * rows * d_pad, nbytes, peak)
 
     def live_rows(count: int) -> int:
         """Rows of the buckets that hold a live row: what the kernels read,
@@ -821,17 +1142,12 @@ def main() -> int:
                     lambda: topk.bucket_maxima_plain(shadow, qd, count)),
            scan_bound(count, d_pad, 2, 256, 256 * nb * 4, PEAK_BF16),
            cuda_ms(lambda: torch.matmul(qd_bf16, shadow[: live_rows(count)].T), iters=3))
-    # K3 reads each distinct selected bucket once (the same bucket chosen
-    # by several queries comes from L2).
-    n_sel = ids.shape[1]
     distinct = torch.unique(ids).numel()
     gathered = buf[topk._bucket_row_ids(ids).long()]  # [256, B*128, d_pad]: the product's operand
     record("rescore",
            in_turns(cuda_ms, lambda: topk.rescore_selected(buf, qd, ids),
                     lambda: topk.rescore_selected_plain(buf, qd, ids)),
-           bound_of(2.0 * 256 * n_sel * 128 * d_pad,
-                    distinct * 128 * d_pad * 4 + 256 * d_pad * 4 + ids.numel() * 4 + 256 * n_sel * 128 * 4,
-                    PEAK_F32),
+           rescore_bound(ids, 256, d_pad),
            cuda_ms(lambda: torch.bmm(gathered, qd[:, :, None]), iters=3))
     del gathered
     record("topk",
@@ -1603,6 +1919,14 @@ def main() -> int:
                   "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3), "ok": True})
     emit(out11)
     del rows, shadow_bf16, packed, runs, buffers
+
+    # 12. a conversation on the card through the port's entry points.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out12, counts12 = asyncio.run(conversation_phase(dev))
+    add_path_launches(counts12)
+    out12.update({"nvidia_smi": smi_line(), "ok": True})
+    emit(out12)
 
     # --------------------------------------------------------------- summary
     for name in ENTRIES:

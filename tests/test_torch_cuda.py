@@ -878,3 +878,41 @@ def test_selection_searches_on_cuda_match_cpu(dev, search):
     for a, b, va, vb in zip(ci.tolist(), gi.tolist(), cv.tolist(), gv.tolist()):
         for i, v in zip(b, vb):
             assert i in a or abs(v - va[-1]) <= tol
+
+
+def test_conversation_on_cuda_matches_cpu(dev, monkeypatch):
+    """A 2,000-message conversation built through create_conversation and
+    add_messages_with_indexing on the card, with EXACT2_MIN_ROWS lowered so
+    that its message index takes the hybrid route (K2 + K3), against the
+    same conversation with device="cpu": the same semrefs, and lookups with
+    scores within 2e-6 and ordinals equal except at ties. A plain function
+    that runs its own event loop: the card's tests run without the repo's
+    conftest."""
+    import asyncio
+
+    from typeagent_tpu_torch import vectorstore
+
+    from test_torch_conv_corpus import make_corpus, port_conversation
+
+    monkeypatch.setattr(vectorstore, "EXACT2_MIN_ROWS", 1024)
+    raw = make_corpus(5, 2000, vocab=500, speakers=20)
+    texts = [raw[i]["text"] for i in (0, 999, 1999)] + ["word7 word70 word300", "speaker3 word1"]
+
+    async def build_and_ask(device):
+        conv, _ = await port_conversation(raw, 2, d=384, device=device)
+        index = conv.secondary_indexes.message_index
+        hits = [await index.lookup_messages(t, max_matches=10, threshold_score=0.0) for t in texts]
+        return [r.serialize() for r in conv.semantic_refs.items], hits
+
+    cpu_refs, cpu_hits = asyncio.run(build_and_ask("cpu"))
+    topk.reset_launch_counts()
+    card_refs, card_hits = asyncio.run(build_and_ask("cuda"))
+    counts = topk.launch_counts()
+    assert counts["bucket_maxima"] >= len(texts) and counts["rescore"] >= len(texts), counts
+    assert card_refs == cpu_refs
+    tol = 2e-6
+    for got, want in zip(card_hits, cpu_hits):
+        assert len(got) == len(want) == 10
+        for g, w in zip(got, want):
+            assert abs(g.score - w.score) <= tol
+            assert g.message_ordinal in {x.message_ordinal for x in want} or abs(g.score - want[-1].score) <= tol

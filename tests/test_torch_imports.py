@@ -122,3 +122,77 @@ def test_new_modules_import_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_conversation_layer_imports_without_jax_pydantic_httpx():
+    """The conversation layer (knowpro, storage, the retrier, the lazy
+    exports) imports and builds a conversation on the CPU in a process
+    where importing jax, ml_dtypes, pydantic or httpx fails."""
+    code = (
+        "import builtins\n"
+        "real = builtins.__import__\n"
+        "def guard(name, *a, **k):\n"
+        "    if name.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'pydantic', 'httpx', 'typeagent_tpu'):\n"
+        "        raise ImportError(f'forbidden import {name}')\n"
+        "    return real(name, *a, **k)\n"
+        "builtins.__import__ = guard\n"
+        "import sys\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'pydantic', 'httpx')]:\n"
+        "    del sys.modules[m]\n"
+        "import asyncio\n"
+        "import typeagent_tpu_torch as pkg\n"
+        "from typeagent_tpu_torch.knowpro import (conversation_base, convfiles, factory, kplib,\n"
+        "    serialization, universal_message)\n"
+        "from typeagent_tpu_torch.models import retry\n"
+        "from typeagent_tpu_torch.models.adapters import create_test_embedding_model\n"
+        "from typeagent_tpu_torch.storage.memory import MemoryStorageProvider\n"
+        "from typing_extensions import Doc\n"
+        "async def run():\n"
+        "    s = pkg.ConversationSettings(create_test_embedding_model(8), device='cpu')\n"
+        "    s.semantic_ref_index_settings.auto_extract_knowledge = False\n"
+        "    conv = await pkg.create_conversation(None, pkg.ConversationMessage, settings=s)\n"
+        "    msg = pkg.ConversationMessage(text_chunks=['hello there'],\n"
+        "        metadata=pkg.ConversationMessageMeta(speaker='Ann', recipients=['Bob']))\n"
+        "    r = await conv.add_messages_with_indexing([msg])\n"
+        "    assert r.messages_added == 1 and r.semrefs_added == 3, r\n"
+        "asyncio.run(run())\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=str(PKG.parent), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_package_has_the_conversation_modules():
+    for name in (
+        "typeagent_tpu_torch.models.result",
+        "typeagent_tpu_torch.models.retry",
+        "typeagent_tpu_torch.utils.trace",
+        "typeagent_tpu_torch.knowpro.fields",
+        "typeagent_tpu_torch.knowpro.kplib",
+        "typeagent_tpu_torch.knowpro.interfaces",
+        "typeagent_tpu_torch.knowpro.serialization",
+        "typeagent_tpu_torch.knowpro.universal_message",
+        "typeagent_tpu_torch.knowpro.collections",
+        "typeagent_tpu_torch.knowpro.fuzzyindex",
+        "typeagent_tpu_torch.knowpro.textlocindex",
+        "typeagent_tpu_torch.knowpro.convsettings",
+        "typeagent_tpu_torch.knowpro.semrefindex",
+        "typeagent_tpu_torch.knowpro.propindex",
+        "typeagent_tpu_torch.knowpro.secindex",
+        "typeagent_tpu_torch.knowpro.knowledge",
+        "typeagent_tpu_torch.knowpro.conversation_base",
+        "typeagent_tpu_torch.knowpro.factory",
+        "typeagent_tpu_torch.knowpro.convfiles",
+        "typeagent_tpu_torch.storage.utils",
+        "typeagent_tpu_torch.storage.memory.collections",
+        "typeagent_tpu_torch.storage.memory.indexes",
+        "typeagent_tpu_torch.storage.memory.messageindex",
+        "typeagent_tpu_torch.storage.memory.reltermsindex",
+        "typeagent_tpu_torch.storage.memory.provider",
+    ):
+        assert name in MODULES

@@ -248,7 +248,7 @@ def bucket_maxima_q4(
 def topk_program_exact2_i4(
     emb: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     queries: torch.Tensor, count: int, k: int, slack: int = _I4_SLACK,
-):
+) -> tuple[torch.Tensor, ...]:
     """int4-selection two-phase top-k: bucket selection over the packed
     nibble shadow (K9, a third of the bf16 shadow's bytes), exact rescore
     of the selected buckets from ``emb`` (K3; the store's bf16 or f32

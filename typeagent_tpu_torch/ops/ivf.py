@@ -33,7 +33,7 @@ phases are timed in ``utils.metrics.METRICS`` (``ivf.build.*``).
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -93,7 +93,7 @@ class IVFState(NamedTuple):
 
 
 def adopt_ivf_state(
-    arrays, device: str | torch.device, dtype: torch.dtype = torch.float32
+    arrays: Any, device: str | torch.device, dtype: torch.dtype = torch.float32
 ) -> IVFState:
     """The port's :class:`IVFState` from the nine arrays of a JAX
     ``IVFState`` (as numpy, in field order), on ``device``; the row arrays
@@ -380,9 +380,11 @@ def _ivf_topk(
 
 
 def ivf_topk_program(
-    emb_r, perm, centroids, radius, bucket_fill, count_in, out_emb, out_perm,
-    count_out, queries: torch.Tensor, k: int, *, B: int = 16,
-):
+    emb_r: torch.Tensor, perm: torch.Tensor, centroids: torch.Tensor, radius: torch.Tensor,
+    bucket_fill: torch.Tensor, count_in: torch.Tensor, out_emb: torch.Tensor,
+    out_perm: torch.Tensor, count_out: torch.Tensor, queries: torch.Tensor, k: int, *,
+    B: int = 16,
+) -> tuple[torch.Tensor, ...]:
     """IVF top-k over an unpacked :class:`IVFState` and a ``[b, d_pad]``
     f32 query block. Returns ``(scores [b, k], ordinals [b, k], cert [b])``:
     scores in the public (cos+1)/2 space, ordinals the ORIGINAL row ids,
@@ -394,7 +396,9 @@ def ivf_topk_program(
     )
 
 
-def ivf_topk(state: IVFState, queries: torch.Tensor | np.ndarray, k: int, *, B: int = 16):
+def ivf_topk(
+    state: IVFState, queries: torch.Tensor | np.ndarray, k: int, *, B: int = 16
+) -> tuple[torch.Tensor, ...]:
     """Top-k over a built IVF index (host entry point); a 1-D query gives
     1-D outputs."""
     if isinstance(queries, np.ndarray):

@@ -1096,7 +1096,7 @@ def cosine_scores_quantized(
 def subset_cosine_topk_quantized(
     emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
     ordinals: torch.Tensor, valid: torch.Tensor, k: int,
-):
+) -> tuple[torch.Tensor, ...]:
     """Top-k of an int8 store restricted to a padded ordinal subset;
     ``valid`` marks real entries, padding scores -1."""
     k = min(k, ordinals.shape[0])
@@ -1176,7 +1176,7 @@ def _exact2_phase2_rescore(
 def cosine_topk_exact2(
     emb: torch.Tensor, queries: torch.Tensor, count: int, k: int, *,
     slack: int = _EXACT2_SLACK,
-):
+) -> tuple[torch.Tensor, ...]:
     """Two-phase exact top-k over one store: bucket maxima (K2), then an
     exact rescore (K3) of the top ``k + slack`` buckets, with certificate."""
     k = min(k, emb.shape[0])
@@ -1188,7 +1188,7 @@ def cosine_topk_exact2(
 def cosine_topk_exact2_hybrid(
     emb: torch.Tensor, shadow: torch.Tensor, queries: torch.Tensor, count: int,
     k: int, *, slack: int = _HYBRID_SLACK,
-):
+) -> tuple[torch.Tensor, ...]:
     """Hybrid exact top-k for f32 stores: bucket selection over the bf16
     ``shadow`` (half the bytes of the f32 scan), exact f32 rescore of the
     selected buckets, certificate at the hybrid slack."""
@@ -1203,7 +1203,7 @@ def cosine_topk_exact2_hybrid(
 def topk_program_exact2_hybrid_i8(
     emb: torch.Tensor, shadow_q: torch.Tensor, shadow_scales: torch.Tensor,
     queries: torch.Tensor, count: int, k: int, slack: int = _HYBRID_I8_SLACK,
-):
+) -> tuple[torch.Tensor, ...]:
     """int8-selection hybrid exact top-k: bucket selection over the int8
     ``shadow_q`` with per-row ``shadow_scales`` (K8, a quarter of the f32
     scan's bytes), exact f32 rescore of the selected buckets from ``emb``
@@ -1273,7 +1273,7 @@ def cosine_topk_approx(
 def subset_cosine_topk(
     emb: torch.Tensor, queries: torch.Tensor, ordinals: torch.Tensor,
     valid: torch.Tensor, k: int,
-):
+) -> tuple[torch.Tensor, ...]:
     """Top-k restricted to a padded ordinal subset; ``valid`` marks real
     entries, padding scores -1."""
     k = min(k, ordinals.shape[0])
@@ -1287,7 +1287,7 @@ def subset_cosine_topk(
 def topk_many(
     emb: torch.Tensor, aux: torch.Tensor | None, qs: torch.Tensor, count: int,
     *, k: int, mode: str, slack: int | None = None, recall_target: float = 0.95,
-):
+) -> tuple[torch.Tensor, ...]:
     """R query batches ``[R, b_pad, d_pad]`` in one launch per kernel:
     queries are independent, so the batches are stacked into one
     ``[R*b_pad, d_pad]`` block and the outputs reshaped back to

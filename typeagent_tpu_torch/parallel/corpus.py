@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import bisect
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -85,7 +86,7 @@ class CorpusVectorStore:
         """Pre-size the device buffer for a known corpus size."""
         self._store.reserve(n_rows)
 
-    def build_ivf(self, **build_kwargs) -> None:
+    def build_ivf(self, **build_kwargs: Any) -> None:
         """Snapshot the corpus into per-shard IVF indexes
         (``parallel/ivf.py``): global searches of an ``"ivf"`` corpus then
         ride it (rows appended later through an exact suffix scan until the

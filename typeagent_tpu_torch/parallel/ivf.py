@@ -68,7 +68,7 @@ def _shard_ivf_topk(state: IVFState, offset: int, q: torch.Tensor, k: int, B: in
 def sharded_ivf_search_dispatch(
     store: ShardedVectorStore, snapshot: ShardedIVF, q_padded: torch.Tensor, k: int,
     min_score: float,
-):
+) -> tuple[torch.Tensor, ...]:
     """Launch the per-shard IVF search and the merge without waiting:
     ``(vals, idx, cert)`` device tensors, ordinals global."""
     from .sharded import _merge_shard_winners

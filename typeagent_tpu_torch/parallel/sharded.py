@@ -31,6 +31,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import threading
+from typing import Any
 
 import numpy as np
 import torch
@@ -368,7 +369,7 @@ class ShardedVectorStore:
 
     # -- sharded IVF (per-shard learned buckets; parallel/ivf.py) -------------
 
-    def build_ivf(self, **build_kwargs) -> None:
+    def build_ivf(self, **build_kwargs: Any) -> None:
         """Snapshot the live rows into per-shard IVF indexes
         (``build_kwargs`` go to ``ops.ivf.ivf_build``). Rows appended
         later are found by an exact interval scan until the next build.

@@ -36,7 +36,7 @@ import contextlib
 import threading
 from collections.abc import Callable
 from dataclasses import dataclass
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Any
 
 import numpy as np
 import torch
@@ -771,7 +771,7 @@ class VectorStore:
 
     # -- IVF snapshot lifecycle ---------------------------------------------
 
-    def build_ivf(self, **kwargs) -> None:
+    def build_ivf(self, **kwargs: Any) -> None:
         """Snapshot the current rows into an IVF index (``ops/ivf.py``;
         ``kwargs`` go to ``ivf_build``). Rows appended later are still
         found, through an exact interval scan, until the next build. No-op
@@ -786,7 +786,7 @@ class VectorStore:
             self._ivf_count = count
             self._esc_ema = None  # new buckets: re-learn the escalation yield
 
-    def adopt_ivf(self, arrays) -> None:
+    def adopt_ivf(self, arrays: Any) -> None:
         """Take an already built IVF snapshot of this store's current rows:
         the nine arrays of a JAX ``IVFState`` as numpy (see
         ``ops.ivf.adopt_ivf_state``)."""
@@ -815,7 +815,7 @@ class VectorStore:
             with self._flush_lock:
                 self._pinned_bufs.remove(buf)
 
-    def build_ivf_background(self, **kwargs) -> threading.Thread | None:
+    def build_ivf_background(self, **kwargs: Any) -> threading.Thread | None:
         """Rebuild the IVF snapshot on a thread and swap it in when done;
         queries keep serving the current snapshot (plus the interval scan)
         meanwhile. Returns the rebuild thread (the running one if a rebuild
