@@ -107,6 +107,33 @@ Phases, one JSON line each:
      async route and called directly, b = 256), launches, K2 and K3 device
      ms, certificate misses, snapshot seconds and bytes, peak device
      memory, the card.
+ 13. ``ConversationBase.query()`` on phase 12's conversation (not ingested
+     again): the 16 questions of ``make_questions`` (stage-1 JSON made
+     from the seed out of the corpus's speakers and words: entity terms
+     with search terms, date ranges, "say" actions, actions whose verb no
+     message has (the verb-scope fallback), two expressions, a pronoun,
+     one that matches nothing) through the canned chat model
+     (``models/canned.py``), each once in turn and then all 16 with
+     ``asyncio.gather``: query p50/p90 and the concurrent wall ms; ms by
+     stage from the spans (translate, compile with the related terms,
+     stage-3 eval, the message query with its re-rank, answers); every
+     launch counter (``materialized_topk`` included); the store calls,
+     recorded by wrapping the two stores' lookups on their instances (the
+     related-terms expansion at k = 50, the subset re-rank), each held to
+     a numpy f32 cosine top-k over the store's rows (ties within 2e-6) and
+     timed by CUDA events; device-busy share by those events and by
+     ``torch.profiler`` over one more pass; peak device memory. Every
+     answer must be non-empty without "Search failed" (the no-match one
+     "No answer found"), the concurrent answers the sequential ones, and
+     the canned model's stage-1 calls the questions asked. Then a
+     6,000-message conversation from the same seed built on the card and
+     on the CPU and asked the same questions: the same answers, stage-3
+     ordinals equal, scores within 1e-5. Then 10,000 messages streamed
+     through ``add_messages_streaming`` in batches of 100 on the card
+     against ``add_messages_with_indexing`` over the same batches: semref
+     count, term and property index sizes, message rows and ``_data.json``
+     (parsed) equal, the related-terms index apart (the JAX package's two
+     paths fill it differently); messages/s for both.
 
 Each corpus search is checked three ways: the API's hits are the kernel's
 output on the same operands, that output agrees with the plain version
@@ -194,6 +221,11 @@ CONV_VOCAB = 5_000
 CONV_SPEAKERS = 50
 CONV_SINGLE = 64  # b = 1 lookups: half message texts, half random words
 CONV_BATCH = 256
+# Phase 13: query() on phase 12's conversation; a CPU twin; streaming ingest.
+CPU_TWIN_MESSAGES = 6_000
+TOL_TWIN = 1e-5
+STREAM_MESSAGES = 10_000
+STREAM_BATCH = 100
 
 
 def emit(obj: dict) -> None:
@@ -543,7 +575,339 @@ async def conversation_phase(dev, n_messages: int = CONV_MESSAGES, batches: int 
         "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
     })
     total = {name: counts_b1[name] + counts_b256[name] + counts_terms[name] for name in counts_b1}
-    return out, total
+    return out, total, conv, raw
+
+
+QUERY_SPANS = {  # the stages of query(), by the spans the port records
+    "translate": ("query.translate_and_search/translate",),
+    "compile": ("query.translate_and_search/compile", "query.translate_and_search/search.compile"),
+    "stage3_eval": ("query.translate_and_search/search.knowledge",),
+    "messages_rerank": ("query.translate_and_search/search.messages",),
+    "answers": ("query.answers",),
+    "query_translate_and_search": ("query.translate_and_search",),
+}
+
+
+def span_marks() -> dict[str, int]:
+    from typeagent_tpu_torch.utils.metrics import METRICS
+
+    return {name: len(METRICS.latencies.get(f"span.{name}", ()))
+            for names in QUERY_SPANS.values() for name in names}
+
+
+def span_ms_since(marks: dict[str, int]) -> dict[str, float]:
+    """Milliseconds each stage of QUERY_SPANS recorded since ``marks``."""
+    from typeagent_tpu_torch.utils.metrics import METRICS
+
+    return {stage: sum(1e3 * x for name in names
+                       for x in METRICS.latencies.get(f"span.{name}", [])[marks[name]:])
+            for stage, names in QUERY_SPANS.items()}
+
+
+def check_top(got: list, scores: np.ndarray, k: int, min_score: float, what: str) -> float:
+    """A store call's (item, score) hits against a numpy f32 top-k of
+    ``scores`` (one query's scores over the rows it searched, items as
+    ``items`` index them): the same count at or above min_score, scores in
+    rank order within TOL_F32, each hit's score its row's, and any hit the
+    plain top-k lacks tying with its last score. Returns the max error."""
+    order = np.argsort(-scores, kind="stable")[:k]
+    ref_v = scores[order]
+    keep = ref_v >= min_score
+    require(len(got) == int(keep.sum()), f"{what}: {len(got)} hits, numpy {int(keep.sum())}")
+    if not got:
+        return 0.0
+    g_items = np.array([item for item, _ in got])
+    g_scores = np.array([score for _, score in got])
+    err = max(float(np.abs(g_scores - ref_v[: len(got)]).max()),
+              float(np.abs(g_scores - scores[g_items]).max()))
+    require(err <= TOL_F32, f"{what}: score error {err}")
+    require(len(set(g_items.tolist())) == len(got), f"{what}: duplicate hit")
+    ref_set = set(order[: len(got)].tolist())
+    last = ref_v[len(got) - 1]
+    for item, score in got:
+        require(item in ref_set or score >= last - TOL_F32, f"{what}: {item} not in the numpy top-k")
+    return err
+
+
+def stage3_of(debug) -> list:
+    """A query's stage-3 results as plain data: per search result, the
+    message (ordinal, score) list and per knowledge type the semref one."""
+    return [([(m.message_ordinal, m.score) for m in r.message_matches],
+             {ktype: [(x.semantic_ref_ordinal, x.score) for x in k.semantic_ref_matches]
+              for ktype, k in sorted(r.knowledge_matches.items())})
+            for r in debug.search_results]
+
+
+async def ask(conv, questions, lang) -> tuple[list[str], list, list[float]]:
+    """Each question once through ``conv.query()`` in turn: answers, stage-3
+    results and milliseconds."""
+    answers, results, ms = [], [], []
+    for question in questions:
+        debug = lang.LanguageSearchDebugContext()
+        t = time.perf_counter()
+        answers.append(await conv.query(question, debug_context=debug))
+        ms.append((time.perf_counter() - t) * 1e3)
+        results.append(stage3_of(debug))
+    return answers, results, ms
+
+
+def use_canned(conv, questions: dict):
+    """Stage-1 and stage-4 translators over one canned chat model."""
+    from typeagent_tpu_torch.knowpro import answers, searchlang
+    from typeagent_tpu_torch.models.canned import CannedChatModel
+
+    model = CannedChatModel(questions)
+    conv._query_translator = searchlang.create_search_query_translator(model)
+    conv._answer_translator = answers.create_answer_translator(model)
+    return model
+
+
+def check_answers(answers: list[str], what: str) -> None:
+    from test_torch_conv_corpus import QUESTION_KINDS
+
+    for kind, answer in zip(QUESTION_KINDS, answers):
+        require(bool(answer) and "Search failed" not in answer, f"{what} ({kind}): {answer[:200]!r}")
+        require(answer.startswith("No answer found") == (kind == "nothing"),
+                f"{what} ({kind}): {answer[:200]!r}")
+
+
+async def query_phase(dev, conv, raw: list[dict]):
+    """Phase 13: ``query()`` on phase 12's conversation, its CPU twin and
+    the streaming ingest. Returns the phase's line."""
+    import tempfile
+
+    import torch
+
+    from typeagent_tpu_torch import create_conversation
+    from typeagent_tpu_torch.knowpro import searchlang
+    from typeagent_tpu_torch.knowpro.universal_message import (
+        ConversationMessage,
+        ConversationMessageMeta,
+    )
+    from typeagent_tpu_torch.ops import topk
+    from test_torch_conv_corpus import (
+        QUESTION_KINDS,
+        ingest,
+        make_corpus,
+        make_questions,
+        port_settings,
+        to_messages,
+        write_snapshot,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    questions = make_questions(raw, SEED + 13)
+    texts = list(questions)
+    model = use_canned(conv, questions)
+    asked = 0
+
+    # (c) Every store call query() makes, recorded by wrapping the two
+    # stores' lookups on their instances: the related-terms expansion (the
+    # fuzzy index at k = 50) and the message re-rank (a subset top-k).
+    sec = conv.secondary_indexes
+    term_store = sec.term_to_related_terms_index.fuzzy_index._vectorbase
+    msg_store = sec.message_index.text_location_index._embedding_index._vector_base
+    calls: list[tuple] = []
+
+    def record_calls(store, name: str, kind: str) -> None:
+        inner = getattr(store, name)
+
+        async def wrapper(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = await inner(*args, **kwargs)
+            end.record()
+            calls.append((kind, args, kwargs, out, start, end))
+            return out
+
+        setattr(store, name, wrapper)
+
+    record_calls(term_store, "fuzzy_lookup_embeddings_batch_async", "related_terms")
+    record_calls(msg_store, "fuzzy_lookup_embedding_in_subset_async", "subset")
+
+    # (b) The first query, timed apart (the stores' batchers start on this
+    # event loop), then each question once in turn, then all at once.
+    t = time.perf_counter()
+    await conv.query(texts[0])
+    first_ms = (time.perf_counter() - t) * 1e3
+    asked += 1
+    torch.cuda.synchronize()
+    calls.clear()
+    topk.reset_launch_counts()
+    marks = span_marks()
+    seq_answers, seq_results, seq_ms = await ask(conv, texts, searchlang)
+    torch.cuda.synchronize()
+    asked += len(texts)
+    counts_seq = topk.launch_counts()
+    stages_ms = span_ms_since(marks)
+    seq_calls = list(calls)
+    check_answers(seq_answers, "query")
+
+    topk.reset_launch_counts()
+    t = time.perf_counter()
+    gathered = await asyncio.gather(*(conv.query(q) for q in texts))
+    gather_ms = (time.perf_counter() - t) * 1e3
+    asked += len(texts)
+    counts_gather = topk.launch_counts()
+    require(list(gathered) == seq_answers, "concurrent answers differ from the sequential ones")
+
+    # Device time: CUDA events around each store call of the sequential
+    # pass, and torch.profiler's device events over one more pass.
+    torch.cuda.synchronize()
+    store_ms = {kind: [s.elapsed_time(e) for k, _, _, _, s, e in seq_calls if k == kind]
+                for kind in ("related_terms", "subset")}
+    from torch.profiler import ProfilerActivity
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        await ask(conv, texts, searchlang)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t) * 1e3
+    asked += len(texts)
+    kernel_ms: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        if us > 0:
+            kernel_ms[evt.key[:80]] = us / 1e3
+    prof_device_ms = sum(kernel_ms.values())
+    require(model.calls["stage1"] == asked, f"canned stage-1 calls {model.calls['stage1']}, asked {asked}")
+
+    # (c) each recorded call against a numpy f32 cosine top-k over the
+    # store's own rows (the store's score: (cos + 1) / 2, clipped to [0, 1]).
+    term_rows = term_store.host_rows(0, len(term_store))
+    msg_rows = msg_store.host_rows(0, len(msg_store))
+    max_err = 0.0
+    checked = {"related_terms": 0, "subset": 0}
+    for n, (kind, args, kwargs, out, _, _) in enumerate(calls):
+        if kind == "related_terms":
+            queries = np.asarray(args[0], dtype=np.float32)
+            k, min_score = kwargs["max_hits"], kwargs["min_score"]
+            scores = np.clip((queries @ term_rows.T + 1) * 0.5, 0, 1)
+            for r, hits in enumerate(out):
+                max_err = max(max_err, check_top([(h.item, h.score) for h in hits], scores[r], k,
+                                                 min_score, f"related terms call {n} row {r}"))
+                checked[kind] += 1
+        else:
+            embedding, ordinals, k, min_score = args
+            ordinals = np.asarray(ordinals)
+            scores = np.clip((msg_rows[ordinals] @ np.asarray(embedding, np.float32) + 1) * 0.5, 0, 1)
+            pos = {int(o): i for i, o in enumerate(ordinals)}
+            got = [(pos[h.item], h.score) for h in out]
+            max_err = max(max_err, check_top(got, scores, k, 0.0 if min_score is None else min_score,
+                                             f"subset call {n}"))
+            checked[kind] += 1
+    require(checked["related_terms"] > 0 and checked["subset"] > 0, f"store calls checked: {checked}")
+    require(counts_seq["materialized_topk"] > 0, "the k = 50 related-terms lookups did not materialize")
+    del term_rows, msg_rows
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # (d) The CPU twin: one 6,000-message conversation built on the card
+    # and on the CPU from the same seed, asked the same questions.
+    raw6 = make_corpus(SEED, CPU_TWIN_MESSAGES, vocab=CONV_VOCAB, speakers=CONV_SPEAKERS)
+    questions6 = make_questions(raw6, SEED + 13)
+    twin = {}
+    for device in ("cuda", "cpu"):
+        settings = port_settings(D_MAIN, device=device)
+        t = time.perf_counter()
+        conv6, _ = await ingest(create_conversation, settings, ConversationMessage,
+                                ConversationMessageMeta, raw6, 1)
+        build_s = time.perf_counter() - t
+        use_canned(conv6, questions6)
+        answers6, results6, ms6 = await ask(conv6, list(questions6), searchlang)
+        twin[device] = {"answers": answers6, "results": results6, "ms": ms6, "build_s": build_s}
+        del conv6
+    check_answers(twin["cuda"]["answers"], "twin on the card")
+    require(twin["cuda"]["answers"] == twin["cpu"]["answers"], "CPU twin: the answers differ")
+    twin_err = 0.0
+    for q, (a, b) in enumerate(zip(twin["cuda"]["results"], twin["cpu"]["results"])):
+        require(len(a) == len(b), f"CPU twin question {q}: {len(a)} results vs {len(b)}")
+        for (ma, ka), (mb, kb) in zip(a, b):
+            require([o for o, _ in ma] == [o for o, _ in mb], f"CPU twin question {q}: message ordinals")
+            require(ka.keys() == kb.keys(), f"CPU twin question {q}: knowledge types")
+            pairs = list(zip(ma, mb)) + [p for t in ka for p in zip(ka[t], kb[t])]
+            for t in ka:
+                require([o for o, _ in ka[t]] == [o for o, _ in kb[t]], f"CPU twin question {q}: {t} ordinals")
+            for (_, x), (_, y) in pairs:
+                twin_err = max(twin_err, abs(x - y))
+    require(twin_err <= TOL_TWIN, f"CPU twin: score error {twin_err} > {TOL_TWIN}")
+
+    # (e) Streaming ingest on the card against add_messages_with_indexing
+    # in the same 100-message batches over the same messages.
+    raw10 = make_corpus(SEED + 1, STREAM_MESSAGES, vocab=CONV_VOCAB, speakers=CONV_SPEAKERS)
+    streamed = await create_conversation(None, ConversationMessage, settings=port_settings(D_MAIN, device=None))
+
+    async def stream():
+        for m in to_messages(raw10, ConversationMessage, ConversationMessageMeta):
+            yield m
+
+    topk.reset_launch_counts()
+    t = time.perf_counter()
+    result = await streamed.add_messages_streaming(stream(), batch_size=STREAM_BATCH)
+    stream_s = time.perf_counter() - t
+    counts_stream = topk.launch_counts()
+    require(result.messages_added == STREAM_MESSAGES and result.messages_skipped == 0,
+            f"streaming: {result}")
+    t = time.perf_counter()
+    batched, _ = await ingest(create_conversation, port_settings(D_MAIN, device=None), ConversationMessage,
+                              ConversationMessageMeta, raw10, STREAM_MESSAGES // STREAM_BATCH)
+    batch_s = time.perf_counter() - t
+    sizes = {}
+    for name, c in (("streaming", streamed), ("with_indexing", batched)):
+        si = c.secondary_indexes
+        sizes[name] = {
+            "semrefs": await c.semantic_refs.size(), "terms": await c.semantic_ref_index.size(),
+            "properties": await si.property_to_semantic_ref_index.size(),
+            "message_rows": await si.message_index.size(),
+            "related_terms_rows": await si.term_to_related_terms_index.fuzzy_index.size(),
+        }
+    with tempfile.TemporaryDirectory() as tmp:
+        data = {}
+        for name, c in (("streaming", streamed), ("with_indexing", batched)):
+            await write_snapshot(c, os.path.join(tmp, name))
+            with open(os.path.join(tmp, name + "_data.json")) as f:
+                data[name] = json.load(f)
+    # The JAX package's two ingest paths fill the related-terms index
+    # differently (streaming: each chunk's extracted terms; batch: the term
+    # index's terms); the port keeps both (ROADMAP Queue 3), so that index
+    # and its row count stand apart from the comparison.
+    for d in data.values():
+        d.pop("relatedTermsIndexData")
+        d["embeddingFileHeader"].pop("relatedCount")
+    for key in ("semrefs", "terms", "properties", "message_rows"):
+        require(sizes["streaming"][key] == sizes["with_indexing"][key], f"streaming {key}: {sizes}")
+    require(data["streaming"] == data["with_indexing"], "streaming: _data.json differs from add_messages_with_indexing's")
+
+    seq = np.array(seq_ms)
+    seq_total = float(seq.sum())
+    device_events_ms = {kind: float(sum(v)) for kind, v in store_ms.items()}
+    return {
+        "phase": 13, "messages": len(raw), "questions": len(texts), "kinds": list(QUESTION_KINDS),
+        "first_query_ms": first_ms,
+        "query_ms_p50": float(np.percentile(seq, 50)), "query_ms_p90": float(np.percentile(seq, 90)),
+        "query_ms_max": float(seq.max()), "query_ms": [round(x, 3) for x in seq_ms],
+        "concurrent_16_wall_ms": gather_ms,
+        "stage_ms": stages_ms, "sequential_wall_ms": seq_total,
+        "launches": {"sequential": counts_seq, "concurrent": counts_gather, "streaming": counts_stream},
+        "materialized_topk": counts_seq["materialized_topk"],
+        "store_calls": {kind: len(v) for kind, v in store_ms.items()},
+        "store_device_ms_events": device_events_ms,
+        "device_busy_share_events": sum(device_events_ms.values()) / seq_total,
+        "profiler_wall_ms": prof_wall_ms, "profiler_device_ms": prof_device_ms,
+        "device_busy_share_profiler": prof_device_ms / prof_wall_ms,
+        "profiler_kernels_ms": dict(sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8]),
+        "store_calls_checked": checked, "store_max_score_err": max_err,
+        "canned_calls": dict(model.calls), "answers_ok": True,
+        "peak_mem_gib": round(peak_gib, 3),
+        "cpu_twin": {"messages": CPU_TWIN_MESSAGES, "answers_equal": True, "max_score_err": twin_err,
+                     "build_s": {k: round(v["build_s"], 3) for k, v in twin.items()},
+                     "query_ms_p50": {k: float(np.percentile(v["ms"], 50)) for k, v in twin.items()}},
+        "streaming": {"messages": STREAM_MESSAGES, "batch": STREAM_BATCH, "equal": True, "sizes": sizes,
+                      "streaming_msgs_per_s": STREAM_MESSAGES / stream_s,
+                      "with_indexing_msgs_per_s": STREAM_MESSAGES / batch_s},
+    }
 
 
 def main() -> int:
@@ -1923,10 +2287,16 @@ def main() -> int:
     # 12. a conversation on the card through the port's entry points.
     gc.collect()
     torch.cuda.empty_cache()
-    out12, counts12 = asyncio.run(conversation_phase(dev))
+    out12, counts12, conv, raw = asyncio.run(conversation_phase(dev))
     add_path_launches(counts12)
     out12.update({"nvidia_smi": smi_line(), "ok": True})
     emit(out12)
+
+    # 13. query() on that conversation, its CPU twin, streaming ingest.
+    out13 = asyncio.run(query_phase(dev, conv, raw))
+    del conv, raw
+    out13.update({"nvidia_smi": smi_line(), "ok": True})
+    emit(out13)
 
     # --------------------------------------------------------------- summary
     for name in ENTRIES:

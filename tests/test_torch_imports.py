@@ -196,3 +196,83 @@ def test_package_has_the_conversation_modules():
         "typeagent_tpu_torch.storage.memory.provider",
     ):
         assert name in MODULES
+
+
+def test_query_and_streaming_run_without_jax_pydantic_httpx():
+    """``query()`` through the canned chat model (typed translator, search
+    compile, the host VM, answers) and ``add_messages_streaming`` run in a
+    process where importing jax, ml_dtypes, pydantic, httpx or
+    ``typeagent_tpu`` fails."""
+    code = (
+        "import builtins\n"
+        "real = builtins.__import__\n"
+        "def guard(name, *a, **k):\n"
+        "    if name.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'pydantic', 'httpx', 'typeagent_tpu'):\n"
+        "        raise ImportError(f'forbidden import {name}')\n"
+        "    return real(name, *a, **k)\n"
+        "builtins.__import__ = guard\n"
+        "import sys\n"
+        "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'pydantic', 'httpx')]:\n"
+        "    del sys.modules[m]\n"
+        "import asyncio\n"
+        "import typeagent_tpu_torch as pkg\n"
+        "from typeagent_tpu_torch.knowpro import answers, kplib, searchlang\n"
+        "from typeagent_tpu_torch.models.adapters import create_test_embedding_model\n"
+        "from typeagent_tpu_torch.models.canned import CannedChatModel\n"
+        "from typeagent_tpu_torch.models.result import Success\n"
+        "class Extractor:\n"
+        "    async def extract(self, text):\n"
+        "        w = text.split()\n"
+        "        return Success(kplib.KnowledgeResponse(entities=[kplib.ConcreteEntity(w[0], ['thing'])],\n"
+        "            actions=[], inverse_actions=[], topics=w[1:]))\n"
+        "def msg(text, speaker):\n"
+        "    return pkg.ConversationMessage(text_chunks=[text],\n"
+        "        metadata=pkg.ConversationMessageMeta(speaker=speaker, recipients=['Bob']))\n"
+        "async def run():\n"
+        "    s = pkg.ConversationSettings(create_test_embedding_model(8), device='cpu')\n"
+        "    s.semantic_ref_index_settings.knowledge_extractor = Extractor()\n"
+        "    conv = await pkg.create_conversation(None, pkg.ConversationMessage, settings=s)\n"
+        "    async def stream():\n"
+        "        for i, text in enumerate(['Bach wrote fugues', 'Ann likes organs', 'Bach played organ']):\n"
+        "            yield msg(text, 'Ann' if i % 2 else 'Cy')\n"
+        "    r = await conv.add_messages_streaming(stream(), batch_size=2)\n"
+        "    assert r.messages_added == 3 and await conv.messages.size() == 3, r\n"
+        "    q = {'searchExpressions': [{'rewrittenQuery': 'what did Bach write',\n"
+        "         'filters': [{'entitySearchTerms': [{'name': 'Bach', 'isNamePronoun': False}],\n"
+        "                      'searchTerms': ['fugues']}]}]}\n"
+        "    model = CannedChatModel({'Bach': q})\n"
+        "    conv._query_translator = searchlang.create_search_query_translator(model)\n"
+        "    conv._answer_translator = answers.create_answer_translator(model)\n"
+        "    answer = await conv.query('What did Bach write?')\n"
+        "    assert 'fugues' in answer and 'Search failed' not in answer, answer\n"
+        "    assert model.calls['stage1'] == 1 and model.calls['answer'] >= 1, model.calls\n"
+        "asyncio.run(run())\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=str(PKG.parent), timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_package_has_the_query_modules():
+    for name in (
+        "typeagent_tpu_torch.models.structured",
+        "typeagent_tpu_torch.models.canned",
+        "typeagent_tpu_torch.knowpro.date_time_schema",
+        "typeagent_tpu_torch.knowpro.search_query_schema",
+        "typeagent_tpu_torch.knowpro.answer_response_schema",
+        "typeagent_tpu_torch.knowpro.answer_context_schema",
+        "typeagent_tpu_torch.knowpro.query",
+        "typeagent_tpu_torch.knowpro.searchlib",
+        "typeagent_tpu_torch.knowpro.search",
+        "typeagent_tpu_torch.knowpro.convutils",
+        "typeagent_tpu_torch.knowpro.searchlang",
+        "typeagent_tpu_torch.knowpro.answers",
+        "typeagent_tpu_torch.knowpro.convknowledge",
+        "typeagent_tpu_torch.knowpro.add_messages",
+    ):
+        assert name in MODULES

@@ -6,15 +6,12 @@ that the port now has (``knowpro/collections.py``, ``semrefindex.py``,
 ``propindex.py``, ``storage/memory/``). Each suite's source is read and
 run with its ``typeagent_tpu.`` imports pointed at ``typeagent_tpu_torch.``;
 every test function of it is one case here, so the port is held to the
-same asserts as the JAX package. Two things differ, both in the names the
-suite's functions see, not in the tests:
-
-* ``TextEmbeddingIndexSettings`` and ``ConversationSettings`` are given
-  ``device="cpu"`` (the port's stores default to the card; a function that
-  imports ``ConversationSettings`` itself gets it in its call);
-* ``test_reltermsindex.py`` takes its compiled search-term helpers from the
-  query module, which is not ported (ROADMAP Queue 1 item 1 (b)); the
-  stand-ins below have the same fields and the same aliasing.
+same asserts as the JAX package. One thing differs, in the names the
+suite's functions see, not in the tests: ``TextEmbeddingIndexSettings`` and
+``ConversationSettings`` are given ``device="cpu"`` (the port's stores
+default to the card; a function that imports ``ConversationSettings``
+itself gets it in its call). ``test_reltermsindex.py`` takes its compiled
+search-term helpers from the port's ``knowpro/query.py``.
 """
 
 import asyncio
@@ -22,12 +19,9 @@ import functools
 import inspect
 import pathlib
 import re
-from dataclasses import dataclass
-from typing import Literal
 
 import pytest
 
-from typeagent_tpu_torch.knowpro.interfaces import SearchTerm
 from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings
 
 TESTS = pathlib.Path(__file__).resolve().parent
@@ -39,39 +33,12 @@ SUITES = (
 )
 
 
-@dataclass
-class CompiledSearchTerm(SearchTerm):
-    related_terms_required: bool = False
-
-
-@dataclass
-class CompiledTermGroup:
-    boolean_op: Literal["and", "or", "or_max"]
-    terms: list[CompiledSearchTerm]
-
-
-def _compiled(term: SearchTerm, required: bool) -> CompiledSearchTerm:
-    term.related_terms_required = required  # aliases the input, as the query module does
-    return term  # type: ignore[return-value]
-
-
-STAND_INS = {
-    "CompiledSearchTerm": CompiledSearchTerm,
-    "CompiledTermGroup": CompiledTermGroup,
-    "to_required_search_term": functools.partial(_compiled, required=True),
-    "to_non_required_search_term": functools.partial(_compiled, required=False),
-}
-_QUERY_IMPORT = re.compile(r"^from typeagent_tpu\.knowpro\.query import \([^)]*\)\n", re.M)
-
-
 def _load(suite: str) -> dict:
     src = (TESTS / suite).read_text()
-    src = _QUERY_IMPORT.sub("", src)
-    assert "knowpro.query" not in src, suite
     src = re.sub(r"\btypeagent_tpu\.", "typeagent_tpu_torch.", src)
     # A function that imports the settings itself gets the device in its call.
     src = src.replace("ConversationSettings(model=", 'ConversationSettings(device="cpu", model=')
-    ns = {"__name__": f"port_mirror_{pathlib.Path(suite).stem}", **STAND_INS}
+    ns = {"__name__": f"port_mirror_{pathlib.Path(suite).stem}"}
     exec(compile(src, f"<{suite} against typeagent_tpu_torch>", "exec"), ns)
     # The suites build settings with the store's default device.
     ns["TextEmbeddingIndexSettings"] = functools.partial(TextEmbeddingIndexSettings, device="cpu")

@@ -1,0 +1,154 @@
+"""The JAX package's query-pipeline suites, run against the port.
+
+Each suite's source is read, its ``typeagent_tpu`` imports are pointed at
+``typeagent_tpu_torch`` and its ``tests.test_*`` imports at the mirrored
+suites, and it is executed as a module of its own. Every test function,
+test class and fixture of it is then put into this module under a name
+that carries the suite's (``test_<suite>__<test>``, ``Test_<suite>__<Class>``),
+so pytest collects each test as a case of this file, parametrized tests
+expanded, with the suite's own fixtures and asserts.
+
+Two things differ from the JAX run, both in the names the suites see, not
+in the tests: ``TextEmbeddingIndexSettings`` and ``ConversationSettings``
+are given ``device="cpu"`` (the port's stores default to the card), and
+stage 3 runs on the host VM, the port's only route (the JAX suites run on
+its default device engine, ROADMAP.md Queue 1 item 4).
+
+The tests the port cannot run are in :data:`EXCLUDED`, each with its reason.
+"""
+
+import functools
+import inspect
+import pathlib
+import re
+import sys
+import types
+
+import pytest
+from _pytest import fixtures
+
+from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings
+
+TESTS = pathlib.Path(__file__).resolve().parent
+# In load order: a suite that imports from another comes after it.
+SUITES = (
+    "test_query_pipeline.py",
+    "test_conversation.py",
+    "test_query_semantics.py",
+    "test_searchlang_compile.py",
+    "test_searchlib.py",
+    "test_answers.py",
+    "test_query_collections_edges.py",
+    "test_streaming_matrix.py",
+    "test_serialization_matrix.py",
+    "test_canned_replay.py",
+)
+_CANNED_INTEGRATION = "# Integration: 4-stage replay vs committed goldens"
+EXCLUDED = {
+    ("test_canned_replay.py", "test_four_stage_replay_matches_answer_goldens"): (
+        "needs the reference Episode-53 corpus (needs_corpus; it skips in the JAX "
+        "run too, the corpus is not in the repository) and the eval tool "
+        "typeagent_tpu/tools/eval_episode53.py (ROADMAP.md Queue 1 item 13)"
+    ),
+    ("test_serialization_matrix.py", "TestObjectSerialization.test_non_pydantic_raises_type_error"): (
+        "asserts pydantic's error text ('Pydantic dataclass'); the port has no "
+        "pydantic and raises the same TypeError with its own words ('camelCase "
+        "dataclass'), which test_torch_structured.py checks"
+    ),
+    ("test_canned_replay.py", "test_query_entrypoint_runs_all_four_stages"): (
+        "needs the reference Episode-53 corpus (needs_corpus; it skips in the JAX "
+        "run too) and the eval tool (ROADMAP.md Queue 1 item 13)"
+    ),
+}
+
+
+def _source(suite: str) -> str:
+    src = (TESTS / suite).read_text()
+    if suite == "test_canned_replay.py":
+        # The unit half only: the integration half loads the reference
+        # corpus through the eval tool at import (see EXCLUDED).
+        src = src[: src.index(_CANNED_INTEGRATION)]
+        src = src.replace("from typeagent_tpu.tools import eval_episode53 as ev\n", "")
+        src = src.rstrip().rstrip("#-\n ") + "\n"
+    src = re.sub(r"\btypeagent_tpu\b", "typeagent_tpu_torch", src)
+    src = re.sub(r"\bfrom tests\.(test_\w+) import", r"from port_mirror_\1 import", src)
+    src = re.sub(r"ConversationSettings\(\s*model=", 'ConversationSettings(device="cpu", model=', src)
+    return src
+
+
+def _load(suite: str) -> types.ModuleType:
+    name = f"port_mirror_{pathlib.Path(suite).stem}"
+    module = types.ModuleType(name)
+    module.__file__ = str(TESTS / suite)
+    sys.modules[name] = module
+    exec(compile(_source(suite), f"<{suite} against typeagent_tpu_torch>", "exec"), module.__dict__)
+    # The suites build embedding settings with the store's default device.
+    module.TextEmbeddingIndexSettings = functools.partial(TextEmbeddingIndexSettings, device="cpu")
+    return module
+
+
+def _is_fixture(obj) -> bool:
+    definition = getattr(fixtures, "FixtureFunctionDefinition", ())
+    return isinstance(obj, definition) or hasattr(obj, "_pytestfixturefunction")
+
+
+def _own(module: types.ModuleType, obj) -> bool:
+    fn = getattr(obj, "_get_wrapped_function", lambda: obj)()
+    return getattr(fn, "__module__", None) == module.__name__ or (
+        inspect.isclass(obj) and obj.__module__ == module.__name__
+    )
+
+
+MIRRORED: dict[str, list[str]] = {}
+_fixtures: dict[str, str] = {}
+for _suite in SUITES:
+    _module = _load(_suite)
+    _stem = pathlib.Path(_suite).stem
+    MIRRORED[_suite] = []
+    for _name, _obj in list(vars(_module).items()):
+        if _is_fixture(_obj) and _own(_module, _obj):
+            assert _name not in _fixtures, f"fixture {_name} of {_suite} and {_fixtures[_name]}"
+            _fixtures[_name] = _suite
+            globals()[_name] = _obj
+        elif (_suite, _name) in EXCLUDED:
+            continue
+        elif _name.startswith("test_") and inspect.isfunction(_obj) and _own(_module, _obj):
+            globals()[f"test_{_stem[5:]}__{_name}"] = _obj
+            MIRRORED[_suite].append(_name)
+        elif _name.startswith("Test") and inspect.isclass(_obj) and _own(_module, _obj):
+            for _method in [m for m in vars(_obj) if m.startswith("test_")]:
+                if (_suite, f"{_name}.{_method}") in EXCLUDED:
+                    delattr(_obj, _method)
+                else:
+                    MIRRORED[_suite].append(f"{_name}.{_method}")
+            globals()[f"Test_{_stem[5:]}__{_name}"] = _obj
+del _suite, _module, _stem, _name, _obj, _method
+
+
+def _suite_tests(suite: str) -> set[str]:
+    """Every test the suite's source defines, by name (methods as Class.test)."""
+    import ast
+
+    tree = ast.parse((TESTS / suite).read_text())
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and node.name.startswith("test_"):
+            out.add(node.name)
+        elif isinstance(node, ast.ClassDef) and node.name.startswith("Test"):
+            out.update(
+                f"{node.name}.{m.name}"
+                for m in node.body
+                if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) and m.name.startswith("test_")
+            )
+    return out
+
+
+def test_every_suite_test_is_mirrored_or_excluded():
+    """Each test of each suite is a case here or stands in EXCLUDED with
+    its reason; nothing else is left out."""
+    for suite in SUITES:
+        defined = _suite_tests(suite)
+        excluded = {name for s, name in EXCLUDED if s == suite}
+        assert set(MIRRORED[suite]) == defined - excluded, suite
+        assert excluded <= defined, suite
+    assert all(reason for reason in EXCLUDED.values())

@@ -4,11 +4,11 @@ The JAX package ``typeagent_tpu`` is the reference; this package mirrors
 its module names. It holds the device-resident embedding store
 (``vectorstore.VectorStore``), its coalescing server
 (``serve.LookupBatcher``), the hand-written Hopper kernels under them
-(``ops/topk.py``, sources in ``csrc/``), and the ingest half of the
-conversation layer (``knowpro/``, ``storage/memory/``): the data model,
-the six indexes, batch ingest and the ``_data.json`` snapshot. It imports
-torch, numpy and the standard library only; kernels build at first use,
-never at import.
+(``ops/topk.py``, sources in ``csrc/``), and the conversation layer
+(``knowpro/``, ``storage/memory/``): the data model, the six indexes,
+batch and streaming ingest, the ``_data.json`` snapshot and the query
+pipeline behind ``ConversationBase.query()``. It imports torch, numpy and
+the standard library only; kernels build at first use, never at import.
 """
 
 from typing import TYPE_CHECKING as _TYPE_CHECKING, Any as _Any

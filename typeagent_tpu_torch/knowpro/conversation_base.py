@@ -1,17 +1,17 @@
 """ConversationBase: the conversation object with incremental indexing.
 
-The port of ``typeagent_tpu/knowpro/conversation_base.py``: its ingest
-half. (Parity: reference knowpro/conversation_base.py — single-transaction
-batch ingest ordering: mark sources -> extend messages -> metadata
-knowledge -> optional LLM knowledge -> secondary indexes -> timestamps;
-chunk-batch commits via precomputed embeddings.)
+The port of ``typeagent_tpu/knowpro/conversation_base.py``. (Parity:
+reference knowpro/conversation_base.py — single-transaction batch ingest
+ordering: mark sources -> extend messages -> metadata knowledge -> optional
+LLM knowledge -> secondary indexes -> timestamps; streaming commits via
+precomputed embeddings; the 4-stage query() path.)
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: the 4-stage ``query()`` and ``add_messages_streaming`` (the
-query pipeline and the streaming ingest, Queue 1 item 1 (b)), and the
-default LLM knowledge extractor (the HTTP chat adapters, item 14): pass
-``settings.semantic_ref_index_settings.knowledge_extractor``, or turn
-``auto_extract_knowledge`` off.
+The default chat model, which the default LLM knowledge extractor and the
+query translators are built on, needs the HTTP chat adapters (ROADMAP.md
+Queue 1 item 14), so both raise ``NotImplementedError`` naming that item:
+pass ``settings.semantic_ref_index_settings.knowledge_extractor`` (or turn
+``auto_extract_knowledge`` off), and set ``_query_translator`` /
+``_answer_translator`` over a chat model of your own before ``query()``.
 """
 
 from __future__ import annotations
@@ -24,8 +24,11 @@ from typing import Generic, Protocol, Self, TypeVar
 
 import numpy as np
 
+from ..models.result import Failure
+from ..models.structured import TypedTranslator
 from ..utils.trace import span
-from . import kplib, secindex, semrefindex
+from . import answers, convknowledge, kplib, searchlang, secindex, semrefindex
+from .answer_response_schema import AnswerResponse
 from .convsettings import ConversationSettings
 from .interfaces import (
     AddMessagesResult,
@@ -43,6 +46,7 @@ from .interfaces import (
 )
 from .messageutils import get_all_message_chunk_locations
 from .propindex import add_to_property_index
+from .search_query_schema import SearchQuery
 
 TMessage = TypeVar("TMessage", bound=IMessage)
 
@@ -71,6 +75,8 @@ class ConversationBase(
     semantic_refs: ISemanticRefCollection
     semantic_ref_index: ITermToSemanticRefIndex
     secondary_indexes: IConversationSecondaryIndexes[TMessage] | None
+    _query_translator: TypedTranslator[SearchQuery] | None = None
+    _answer_translator: TypedTranslator[AnswerResponse] | None = None
 
     def __init__(
         self,
@@ -81,6 +87,8 @@ class ConversationBase(
         self.settings = settings
         self.name_tag = name
         self.tags = tags
+        self._query_translator = None
+        self._answer_translator = None
 
     @classmethod
     async def create(
@@ -185,11 +193,17 @@ class ConversationBase(
         skip_failed_messages: bool = False,
         shutdown_event: asyncio.Event | None = None,
     ) -> AddMessagesResult:
-        raise NotImplementedError(
-            "add_messages_streaming: the streaming ingest pipeline "
-            "(knowpro/add_messages.py) is not ported yet (ROADMAP.md Queue 1 item 1 (b)); "
-            "use add_messages_with_indexing"
-        )
+        from .add_messages import add_messages_streaming as run_pipeline
+
+        with span("ingest.streaming", batch_size=batch_size):
+            return await run_pipeline(
+                self,
+                messages,
+                batch_size=batch_size,
+                on_batch_committed=on_batch_committed,
+                skip_failed_messages=skip_failed_messages,
+                shutdown_event=shutdown_event,
+            )
 
     async def _commit_chunk_batch(
         self,
@@ -356,14 +370,9 @@ class ConversationBase(
         settings = self.settings.semantic_ref_index_settings
         if not settings.auto_extract_knowledge:
             return
-        knowledge_extractor = settings.knowledge_extractor
-        if knowledge_extractor is None:
-            raise NotImplementedError(
-                "the default LLM knowledge extractor needs the HTTP chat "
-                "adapters, which are not ported yet (ROADMAP.md Queue 1 item "
-                "14); set settings.semantic_ref_index_settings.knowledge_extractor "
-                "or auto_extract_knowledge=False"
-            )
+        knowledge_extractor = (
+            settings.knowledge_extractor or convknowledge.KnowledgeExtractor()
+        )
         text_locations = get_all_message_chunk_locations(
             messages, start_from_message_ordinal
         )
@@ -492,15 +501,81 @@ class ConversationBase(
 
     # -- the 4-stage query path ----------------------------------------------
 
+    def _lazy_translators(self) -> None:
+        """Lazy stage-1/stage-4 translators over the default chat model,
+        which raises until the HTTP adapters are ported (ROADMAP.md Queue 1
+        item 14): set the translators first."""
+        if self._query_translator is not None and self._answer_translator is not None:
+            return
+        from ..models.adapters import create_chat_model
+
+        if self._query_translator is None:
+            self._query_translator = searchlang.create_search_query_translator(
+                create_chat_model(retrier=self.settings.chat_retrier)
+            )
+        if self._answer_translator is None:
+            self._answer_translator = answers.create_answer_translator(
+                create_chat_model(retrier=self.settings.chat_retrier)
+            )
+
     async def query(
         self,
         question: str,
-        search_options: object | None = None,
-        answer_options: object | None = None,
-        debug_context: object | None = None,
+        search_options: searchlang.LanguageSearchOptions | None = None,
+        answer_options: answers.AnswerContextOptions | None = None,
+        debug_context: searchlang.LanguageSearchDebugContext | None = None,
     ) -> str:
-        """End-to-end natural-language query -> answer string."""
-        raise NotImplementedError(
-            "query(): the query pipeline (searchlang, search, the query VM, "
-            "answers) is not ported yet (ROADMAP.md Queue 1 item 1 (b))"
+        """End-to-end natural-language query -> answer string.
+
+        ``debug_context`` captures the per-stage intermediates (stage-1
+        SearchQuery, compiled exprs, stage-3 results) for batch recorders
+        (reference tools/query.py's --search-results flow).
+        """
+        self._lazy_translators()
+
+        search_options = search_options or searchlang.LanguageSearchOptions(
+            compile_options=searchlang.LanguageQueryCompileOptions(
+                exact_scope=False,
+                verb_scope=True,
+                term_filter=None,
+                apply_scope=True,
+            ),
+            exact_match=False,
+            max_message_matches=25,
         )
+
+        with span("query.translate_and_search"):
+            result = await searchlang.search_conversation_with_language(
+                self,
+                self._query_translator,
+                question,
+                search_options,
+                debug_context=debug_context,
+            )
+        if isinstance(result, Failure):
+            return f"Search failed: {result.message}"
+        search_results = result.value
+
+        answer_options = answer_options or answers.AnswerContextOptions(
+            entities_top_k=50, topics_top_k=50, messages_top_k=None, chunking=None
+        )
+
+        with span("query.answers", results=len(search_results)):
+            _, combined_answer = await answers.generate_answers(
+                self._answer_translator,
+                search_results,
+                self,
+                question,
+                options=answer_options,
+            )
+
+        match combined_answer.type:
+            case "NoAnswer":
+                return (
+                    f"No answer found: "
+                    f"{combined_answer.why_no_answer or 'Unable to find relevant information'}"
+                )
+            case "Answered":
+                return combined_answer.answer or "No answer provided"
+            case _:
+                return f"Unexpected answer type: {combined_answer.type}"

@@ -16,6 +16,10 @@ functions below walk each class's fields and type hints:
   raises :class:`ValidationError`, a ``ValueError`` as pydantic's is, on
   input that fits no field.
 
+:func:`json_schema` renders the JSON schema pydantic's
+``TypeAdapter(cls).json_schema()`` gives for such a class (the typed
+translator's prompt shows it to the model).
+
 Construction validates as a pydantic dataclass does: after the generated
 ``__init__``, each field's value goes through the same lax validation
 (``Facet("pages", 350)`` holds ``350.0``; lists are copied), except a value
@@ -28,6 +32,7 @@ import collections
 import collections.abc
 import dataclasses
 import functools
+import inspect
 import types
 import typing
 from datetime import datetime, timezone
@@ -75,8 +80,10 @@ def dataclass(cls: type | None = None, /, **kwargs: Any) -> Any:
     """A standard dataclass that (de)serializes with camelCase keys."""
 
     def wrap(c: type) -> type:
+        own_doc = c.__dict__.get("__doc__")  # before dataclass() fills it in
         c = dataclasses.dataclass(c, **kwargs)
         setattr(c, _MARK, True)
+        c.__camel_doc__ = own_doc
         generated = c.__init__
 
         @functools.wraps(generated)
@@ -385,3 +392,138 @@ def _dataclass(cls: type) -> _Validator:
         return obj
 
     return validate
+
+
+# ---------------------------------------------------------------------------
+# JSON schema
+# ---------------------------------------------------------------------------
+
+_JSON_TYPES: dict[Any, dict[str, Any]] = {
+    str: {"type": "string"},
+    int: {"type": "integer"},
+    float: {"type": "number"},
+    bool: {"type": "boolean"},
+    type(None): {"type": "null"},
+    datetime: {"format": "date-time", "type": "string"},
+}
+_LITERAL_TYPES = {str: "string", int: "integer", float: "number", bool: "boolean", type(None): "null"}
+
+
+def json_schema(tp: Any) -> dict[str, Any]:
+    """The validation-mode JSON schema of ``tp``, as pydantic renders it.
+
+    Dataclasses and ``type`` aliases below the top level go to ``$defs``
+    under their names and are referenced by ``$ref``; a field's ``title``
+    is its camelCase key through ``str.title``, left off where the field's
+    type is one referenced definition (alone or with None); a class's own
+    docstring is its ``description``; a recursive class is itself a
+    reference; keys are sorted except inside ``properties``, as pydantic
+    sorts them.
+    """
+    defs: dict[str, Any] = {}
+    top = _class_schema(tp, defs) if _is_class(tp) else _type_schema(tp, defs)
+    if _is_class(tp) and tp.__name__ in defs:  # recursive: the top is a reference too
+        defs[tp.__name__] = top
+        top = {"$ref": f"#/$defs/{tp.__name__}"}
+    if defs:
+        top["$defs"] = defs
+    return _sorted_schema(top)
+
+
+def _is_class(tp: Any) -> bool:
+    return isinstance(tp, type) and is_camel_dataclass(tp)
+
+
+def _strip(tp: Any) -> Any:
+    while typing.get_origin(tp) is typing.Annotated:
+        tp = typing.get_args(tp)[0]
+    return tp
+
+
+def _class_schema(cls: type, defs: dict[str, Any]) -> dict[str, Any]:
+    properties: dict[str, Any] = {}
+    required = []
+    for spec, tp in _specs(cls):
+        key = to_camel(spec.name)
+        schema = _type_schema(tp, defs)
+        default = _field_default(cls, spec.name)
+        if default is not _NO_DEFAULT:
+            schema["default"] = _dump(default, False)
+        if _titled(tp):
+            schema["title"] = key.title().replace("_", " ")
+        properties[key] = schema
+        if spec.required:
+            required.append(key)
+    out: dict[str, Any] = {"properties": properties}
+    if required:
+        out["required"] = required
+    out["title"] = cls.__name__
+    out["type"] = "object"
+    doc = cls.__dict__.get("__camel_doc__")
+    if doc is not None:
+        out["description"] = inspect.cleandoc(doc)
+    return out
+
+
+def _titled(tp: Any) -> bool:
+    """pydantic titles a field unless its type is one reference."""
+    tp = _strip(tp)
+    if typing.get_origin(tp) in (Union, types.UnionType):
+        members = [m for m in typing.get_args(tp) if m is not type(None)]
+        if len(members) != 1:
+            return True
+        tp = _strip(members[0])
+    return not (_is_class(tp) or isinstance(tp, typing.TypeAliasType))
+
+
+def _ref(name: str, build: typing.Callable[[], dict[str, Any]], defs: dict[str, Any]) -> dict[str, Any]:
+    if name not in defs:
+        defs[name] = {}  # a recursive type refers to itself while it is built
+        defs[name] = build()
+    return {"$ref": f"#/$defs/{name}"}
+
+
+def _type_schema(tp: Any, defs: dict[str, Any]) -> dict[str, Any]:
+    tp = _strip(tp)
+    origin = typing.get_origin(tp)
+    if isinstance(tp, typing.TypeAliasType):
+        return _ref(tp.__name__, lambda: _type_schema(tp.__value__, defs), defs)
+    if _is_class(tp):
+        return _ref(tp.__name__, lambda: _class_schema(tp, defs), defs)
+    if tp in _JSON_TYPES:
+        return dict(_JSON_TYPES[tp])
+    if tp is Any:
+        return {}
+    if origin is Literal:
+        values = list(typing.get_args(tp))
+        out: dict[str, Any] = {"const": values[0]} if len(values) == 1 else {"enum": values}
+        kinds = {type(v) for v in values}
+        if len(kinds) == 1 and next(iter(kinds)) in _LITERAL_TYPES:
+            out["type"] = _LITERAL_TYPES[next(iter(kinds))]
+        return out
+    if origin in (Union, types.UnionType):
+        members: list[dict[str, Any]] = []
+        for m in typing.get_args(tp):
+            schema = _type_schema(m, defs)
+            for item in schema["anyOf"] if list(schema) == ["anyOf"] else [schema]:
+                if item not in members:
+                    members.append(item)
+        return members[0] if len(members) == 1 else {"anyOf": members}
+    if origin in (list, collections.abc.Sequence, set):
+        out = {"items": _type_schema(typing.get_args(tp)[0], defs), "type": "array"}
+        if origin is set:
+            out["uniqueItems"] = True
+        return out
+    if origin is dict:
+        value = _type_schema(typing.get_args(tp)[1], defs)
+        return {"additionalProperties": value or True, "type": "object"}
+    raise TypeError(f"no JSON schema for type {tp!r}")
+
+
+def _sorted_schema(value: Any, parent: str | None = None) -> Any:
+    if isinstance(value, dict):
+        keys = value if parent in ("properties", "default") else sorted(value)
+        return {k: _sorted_schema(value[k], k) for k in keys}
+    if isinstance(value, list):
+        return [_sorted_schema(v, parent) for v in value]
+    return value

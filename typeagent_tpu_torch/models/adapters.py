@@ -1,10 +1,12 @@
-"""Deterministic offline embedding models.
+"""Deterministic offline embedding and chat models.
 
 The HTTP chat and embedding adapters of the JAX package
 (``typeagent_tpu/models/adapters.py``) are not ported yet: they need
-``httpx``. What the store's tests and ``chip_smoke.py`` need is the
-deterministic fake, which gives the same vector for the same string in
-every process and in both packages.
+``httpx`` (ROADMAP.md Queue 1 item 14). What the store's tests and
+``chip_smoke.py`` need is the deterministic fake embedder, which gives the
+same vector for the same string in every process and in both packages, and
+the fake chat model; :func:`create_chat_model` builds only the ``test``
+provider and raises for every other spec.
 """
 
 from __future__ import annotations
@@ -21,7 +23,11 @@ from .embeddings import (
     normalize,
 )
 
-__all__ = ["FakeEmbedder", "create_test_embedding_model"]
+from .result import Failure, Result, Success
+from .retry import AsyncRetrier
+from .structured import IChatModel, PromptSection
+
+__all__ = ["FakeChatModel", "FakeEmbedder", "create_chat_model", "create_test_embedding_model"]
 
 
 def _fake_embedding(text: str, size: int) -> np.ndarray:
@@ -59,3 +65,36 @@ class FakeEmbedder:
 def create_test_embedding_model(embedding_size: int = 3) -> CachingEmbeddingModel:
     """Deterministic offline embedding model — no keys, no network."""
     return CachingEmbeddingModel(FakeEmbedder(embedding_size))
+
+
+class FakeChatModel:
+    """Offline chat model returning canned or echo responses (for tests)."""
+
+    model_name = TEST_MODEL_NAME
+
+    def __init__(self, responses: list[str] | None = None):
+        self.responses = list(responses or [])
+        self.prompts: list = []
+
+    async def complete(self, prompt: list[PromptSection]) -> Result[str]:
+        self.prompts.append(prompt)
+        if self.responses:
+            return Success(self.responses.pop(0))
+        return Failure("FakeChatModel has no canned responses left")
+
+
+def create_chat_model(
+    model_spec: str | None = None,
+    *,
+    retrier: AsyncRetrier | None = None,
+) -> IChatModel:
+    """The chat model of a ``provider:model`` spec: only ``test`` is built
+    here; every HTTP provider, and the default spec, raises."""
+    if model_spec is not None and model_spec.partition(":")[0] == "test":
+        return FakeChatModel()
+    raise NotImplementedError(
+        "the HTTP chat adapters are not ported yet (ROADMAP.md Queue 1 item "
+        f"14), so there is no chat model for {model_spec or 'the default spec'!r}; "
+        "pass a chat model (e.g. models.adapters.FakeChatModel or "
+        "models.canned.CannedChatModel)"
+    )

@@ -38,8 +38,6 @@ from ...knowpro.interfaces import (
 from ...vectorstore import ScoredInt, TextEmbeddingIndexSettings, VectorStore
 
 if TYPE_CHECKING:
-    # The query pipeline is ROADMAP Queue 1 item 1 (b); only the names of
-    # its compiled-term types are needed here.
     from ...knowpro.query import CompiledSearchTerm, CompiledTermGroup
 
 
