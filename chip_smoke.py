@@ -114,9 +114,15 @@ Phases, one JSON line each:
      message has (the verb-scope fallback), two expressions, a pronoun,
      one that matches nothing) through the canned chat model
      (``models/canned.py``), each once in turn and then all 16 with
-     ``asyncio.gather``: query p50/p90 and the concurrent wall ms; ms by
-     stage from the spans (translate, compile with the related terms,
-     stage-3 eval, the message query with its re-rank, answers); every
+     ``asyncio.gather``, stage 3 on the default route, the device query
+     engine (``knowpro/device_executor.py``): query p50/p90 and the
+     concurrent wall ms; each question's route (``_last_engine_route``);
+     the engine's first sync seconds (span ``engine.sync``, apart from the
+     first query's ms) and its interner, which must be the native one
+     (``native/interner.cpp``); the ``EngineBatcher``'s dispatches and batch sizes
+     for the 16 asked at once; ms by stage from the spans (translate,
+     compile with the related terms, stage-3 eval, the message query with
+     its re-rank, answers); every
      launch counter (``materialized_topk`` included); the store calls,
      recorded by wrapping the two stores' lookups on their instances (the
      related-terms expansion at k = 50, the subset re-rank), each held to
@@ -134,6 +140,19 @@ Phases, one JSON line each:
      count, term and property index sizes, message rows and ``_data.json``
      (parsed) equal, the related-terms index apart (the JAX package's two
      paths fill it differently); messages/s for both.
+ 14. The device query engine against the host VM on phase 12's
+     conversation: the 16 questions once with ``use_device_executor=
+     "host"`` and twice on the default route, then once more under
+     ``torch.profiler``. Every device-pass route must be "device" (a
+     fallback fails the phase); each question's stage-3 results equal the
+     host VM's (per knowledge type and for messages: the same ordinals, in
+     the same order except among tied scores, scores within 1e-4); the
+     answers equal the host route's; the second device pass gives the same
+     bits. Printed: per question its kind, route and stage-3 ms on each
+     route; the engine's spans (``engine.accumulate``: the device calls and
+     their download; ``engine.combine``: the host combine); the profiler's
+     top device ops and device-busy share; the engine's peak device memory
+     over the resident conversation; the card.
 
 Each corpus search is checked three ways: the API's hits are the kernel's
 output on the same operands, that output agrees with the plain version
@@ -224,6 +243,9 @@ CONV_BATCH = 256
 # Phase 13: query() on phase 12's conversation; a CPU twin; streaming ingest.
 CPU_TWIN_MESSAGES = 6_000
 TOL_TWIN = 1e-5
+# Phase 14: the device engine against the host VM (the JAX package's
+# Device==VM tolerance, tests/test_torch_query_parity.py TOL_DEVICE).
+TOL_ENGINE = 1e-4
 STREAM_MESSAGES = 10_000
 STREAM_BATCH = 100
 
@@ -638,17 +660,45 @@ def stage3_of(debug) -> list:
             for r in debug.search_results]
 
 
-async def ask(conv, questions, lang) -> tuple[list[str], list, list[float]]:
-    """Each question once through ``conv.query()`` in turn: answers, stage-3
-    results and milliseconds."""
-    answers, results, ms = [], [], []
+STAGE3_SPAN = "query.translate_and_search/search.knowledge"
+
+
+async def ask(conv, questions, lang, options=None) -> dict[str, list]:
+    """Each question once through ``conv.query()`` in turn (``options`` as
+    its search options): answers, stage-3 results, ms, the stage-3 span's
+    ms and the engine route per question."""
+    from typeagent_tpu_torch.utils.metrics import METRICS
+
+    out: dict[str, list] = {"answers": [], "results": [], "ms": [], "stage3_ms": [], "routes": []}
     for question in questions:
         debug = lang.LanguageSearchDebugContext()
+        mark = len(METRICS.latencies.get(f"span.{STAGE3_SPAN}", ()))
         t = time.perf_counter()
-        answers.append(await conv.query(question, debug_context=debug))
-        ms.append((time.perf_counter() - t) * 1e3)
-        results.append(stage3_of(debug))
-    return answers, results, ms
+        out["answers"].append(await conv.query(question, search_options=options, debug_context=debug))
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["stage3_ms"].append(1e3 * sum(METRICS.latencies.get(f"span.{STAGE3_SPAN}", [])[mark:]))
+        out["results"].append(stage3_of(debug))
+        out["routes"].append(getattr(conv, "_last_engine_route", None))
+    return out
+
+
+def engine_span_ms(name: str, marks: dict[str, int] | None = None) -> tuple[float, int]:
+    """(ms, count) the engine recorded under span ``name`` since ``marks``
+    (its spans nest under whichever span launched the engine call)."""
+    from typeagent_tpu_torch.utils.metrics import METRICS
+
+    total, count = 0.0, 0
+    for key, values in METRICS.latencies.items():
+        if key == f"span.{name}" or key.endswith(f"/{name}"):
+            new = values[(marks or {}).get(key, 0):]
+            total, count = total + 1e3 * sum(new), count + len(new)
+    return total, count
+
+
+def engine_span_marks() -> dict[str, int]:
+    from typeagent_tpu_torch.utils.metrics import METRICS
+
+    return {key: len(values) for key, values in METRICS.latencies.items() if "engine." in key}
 
 
 def use_canned(conv, questions: dict):
@@ -726,16 +776,23 @@ async def query_phase(dev, conv, raw: list[dict]):
     record_calls(msg_store, "fuzzy_lookup_embedding_in_subset_async", "subset")
 
     # (b) The first query, timed apart (the stores' batchers start on this
-    # event loop), then each question once in turn, then all at once.
+    # event loop, and the device engine builds its postings: the engine.sync
+    # span), then each question once in turn, then all at once.
+    sync_marks = engine_span_marks()
     t = time.perf_counter()
     await conv.query(texts[0])
     first_ms = (time.perf_counter() - t) * 1e3
+    first_sync_ms, syncs = engine_span_ms("engine.sync", sync_marks)
+    require(syncs >= 1, "the first query did not sync the device engine")
+    interner = type(conv._device_executor._postings._interner).__name__
+    require(interner == "NativeInterner", f"the engine's interner is {interner}, not the native one")
     asked += 1
     torch.cuda.synchronize()
     calls.clear()
     topk.reset_launch_counts()
     marks = span_marks()
-    seq_answers, seq_results, seq_ms = await ask(conv, texts, searchlang)
+    seq_run = await ask(conv, texts, searchlang)
+    seq_answers, seq_ms = seq_run["answers"], seq_run["ms"]
     torch.cuda.synchronize()
     asked += len(texts)
     counts_seq = topk.launch_counts()
@@ -743,13 +800,30 @@ async def query_phase(dev, conv, raw: list[dict]):
     seq_calls = list(calls)
     check_answers(seq_answers, "query")
 
+    # The EngineBatcher's dispatches for the 16 at once, and each dispatch's
+    # batch (the queries one execute_batch call takes), recorded on the
+    # executor instance.
+    batches: list[int] = []
+    executor = conv._device_executor
+    inner_batch = executor.execute_batch
+
+    async def counted_batch(queries, context):
+        batches.append(len(queries))
+        return await inner_batch(queries, context)
+
+    executor.execute_batch = counted_batch
+    stats_before = conv._engine_batcher.stats()
     topk.reset_launch_counts()
     t = time.perf_counter()
     gathered = await asyncio.gather(*(conv.query(q) for q in texts))
     gather_ms = (time.perf_counter() - t) * 1e3
+    del executor.execute_batch
+    stats_after = conv._engine_batcher.stats()
     asked += len(texts)
     counts_gather = topk.launch_counts()
     require(list(gathered) == seq_answers, "concurrent answers differ from the sequential ones")
+    batcher = {"dispatches": stats_after["dispatches"] - stats_before["dispatches"],
+               "served": stats_after["served"] - stats_before["served"], "batch_sizes": batches}
 
     # Device time: CUDA events around each store call of the sequential
     # pass, and torch.profiler's device events over one more pass.
@@ -816,8 +890,9 @@ async def query_phase(dev, conv, raw: list[dict]):
                                 ConversationMessageMeta, raw6, 1)
         build_s = time.perf_counter() - t
         use_canned(conv6, questions6)
-        answers6, results6, ms6 = await ask(conv6, list(questions6), searchlang)
-        twin[device] = {"answers": answers6, "results": results6, "ms": ms6, "build_s": build_s}
+        run6 = await ask(conv6, list(questions6), searchlang)
+        require(set(run6["routes"]) == {"device"}, f"twin on {device}: routes {run6['routes']}")
+        twin[device] = {**run6, "build_s": build_s}
         del conv6
     check_answers(twin["cuda"]["answers"], "twin on the card")
     require(twin["cuda"]["answers"] == twin["cpu"]["answers"], "CPU twin: the answers differ")
@@ -885,7 +960,9 @@ async def query_phase(dev, conv, raw: list[dict]):
     device_events_ms = {kind: float(sum(v)) for kind, v in store_ms.items()}
     return {
         "phase": 13, "messages": len(raw), "questions": len(texts), "kinds": list(QUESTION_KINDS),
-        "first_query_ms": first_ms,
+        "first_query_ms": first_ms, "engine_first_sync_ms": first_sync_ms, "interner": interner,
+        "routes": seq_run["routes"], "stage3_ms": [round(x, 3) for x in seq_run["stage3_ms"]],
+        "concurrent_16_batcher": batcher,
         "query_ms_p50": float(np.percentile(seq, 50)), "query_ms_p90": float(np.percentile(seq, 90)),
         "query_ms_max": float(seq.max()), "query_ms": [round(x, 3) for x in seq_ms],
         "concurrent_16_wall_ms": gather_ms,
@@ -907,6 +984,110 @@ async def query_phase(dev, conv, raw: list[dict]):
         "streaming": {"messages": STREAM_MESSAGES, "batch": STREAM_BATCH, "equal": True, "sizes": sizes,
                       "streaming_msgs_per_s": STREAM_MESSAGES / stream_s,
                       "with_indexing_msgs_per_s": STREAM_MESSAGES / batch_s},
+    }
+
+
+def close_up_to_ties(a: list, b: list, tol: float, what: str) -> None:
+    """(ordinal, score) lists: the same length, scores rank by rank within
+    ``tol``, each ordinal's score within ``tol`` where both hold it, the
+    same ordinals apart from those tying with the last score (a cut at a
+    tie may keep either), and where two lists differ at a rank, the two
+    ordinals there tie."""
+    require(len(a) == len(b), f"{what}: {len(a)} results vs {len(b)}")
+    if not a:
+        return
+    sa, sb = dict(a), dict(b)
+    for (oa, x), (ob, y) in zip(a, b):
+        require(abs(x - y) <= tol, f"{what}: scores {x} vs {y}")
+        if oa != ob and oa in sa and ob in sa:
+            require(abs(sa[oa] - sa[ob]) <= tol, f"{what}: {oa} and {ob} swapped without a tie")
+    for o in sa.keys() & sb.keys():
+        require(abs(sa[o] - sb[o]) <= tol, f"{what}: ordinal {o} {sa[o]} vs {sb[o]}")
+    last = min(a[-1][1], b[-1][1])
+    clear = lambda d: {o for o, v in d.items() if v > last + tol}  # noqa: E731
+    require(clear(sa) == clear(sb), f"{what}: different ordinals above the last score")
+
+
+async def engine_phase(dev, conv, raw: list[dict]):
+    """Phase 14: the device query engine held to the host VM on phase 12's
+    conversation. Returns the phase's line."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from typeagent_tpu_torch.knowpro import searchlang
+    from test_torch_conv_corpus import QUESTION_KINDS, make_questions
+
+    questions = make_questions(raw, SEED + 13)
+    texts = list(questions)
+    use_canned(conv, questions)
+    host_options = searchlang.LanguageSearchOptions(
+        compile_options=searchlang.LanguageQueryCompileOptions(
+            exact_scope=False, verb_scope=True, term_filter=None, apply_scope=True
+        ),
+        exact_match=False,
+        max_message_matches=25,
+        use_device_executor="host",
+    )
+    t = time.perf_counter()
+    host = await ask(conv, texts, searchlang, host_options)
+    host_wall_ms = (time.perf_counter() - t) * 1e3
+    require(set(host["routes"]) == {"host"}, f"host pass routes: {host['routes']}")
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    marks = engine_span_marks()
+    t = time.perf_counter()
+    device = await ask(conv, texts, searchlang)
+    torch.cuda.synchronize()
+    device_wall_ms = (time.perf_counter() - t) * 1e3
+    engine_peak = torch.cuda.max_memory_allocated() - resident
+    spans = {name: engine_span_ms(name, marks) for name in ("engine.sync", "engine.accumulate", "engine.combine")}
+    again = await ask(conv, texts, searchlang)
+
+    fallbacks = [(kind, r) for kind, r in zip(list(QUESTION_KINDS) * 2, device["routes"] + again["routes"])
+                 if r != "device"]
+    require(not fallbacks, f"device passes left the device engine: {fallbacks}")
+    require(again["results"] == device["results"] and again["answers"] == device["answers"],
+            "a second device pass gave other bits")
+    require(device["answers"] == host["answers"], "device-engine answers differ from the host VM's")
+    for q, (kind, d_res, h_res) in enumerate(zip(QUESTION_KINDS, device["results"], host["results"])):
+        require(len(d_res) == len(h_res), f"question {q} ({kind}): {len(d_res)} results vs {len(h_res)}")
+        for (dm, dk), (hm, hk) in zip(d_res, h_res):
+            close_up_to_ties(dm, hm, TOL_ENGINE, f"question {q} ({kind}) messages")
+            require(dk.keys() == hk.keys(), f"question {q} ({kind}): knowledge types {dk.keys()} vs {hk.keys()}")
+            for ktype in dk:
+                close_up_to_ties(dk[ktype], hk[ktype], TOL_ENGINE, f"question {q} ({kind}) {ktype}")
+
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        await ask(conv, texts, searchlang)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t) * 1e3
+    device_ops: dict[str, float] = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        if us > 0:
+            device_ops[evt.key[:80]] = us / 1e3
+    prof_device_ms = sum(device_ops.values())
+    return {
+        "phase": 14, "messages": len(raw), "questions": len(texts),
+        "per_question": [
+            {"kind": kind, "route": route, "stage3_ms_device": round(d_ms, 3), "stage3_ms_host": round(h_ms, 3)}
+            for kind, route, d_ms, h_ms in zip(QUESTION_KINDS, device["routes"], device["stage3_ms"], host["stage3_ms"])
+        ],
+        "stage3_ms_device": sum(device["stage3_ms"]), "stage3_ms_host": sum(host["stage3_ms"]),
+        "query_wall_ms_device": device_wall_ms, "query_wall_ms_host": host_wall_ms,
+        "engine_spans_ms": {name: {"ms": ms, "count": n} for name, (ms, n) in spans.items()},
+        "fallbacks": 0, "results_equal_up_to_ties": True, "tolerance": TOL_ENGINE,
+        "answers_equal": True, "second_pass_same_bits": True,
+        "profiler_wall_ms": prof_wall_ms, "profiler_device_ms": prof_device_ms,
+        "device_busy_share_profiler": prof_device_ms / prof_wall_ms,
+        "profiler_device_ops_ms": dict(sorted(device_ops.items(), key=lambda kv: -kv[1])[:12]),
+        "engine_peak_mem_mib": round(engine_peak / 2**20, 3),
     }
 
 
@@ -2294,9 +2475,14 @@ def main() -> int:
 
     # 13. query() on that conversation, its CPU twin, streaming ingest.
     out13 = asyncio.run(query_phase(dev, conv, raw))
-    del conv, raw
     out13.update({"nvidia_smi": smi_line(), "ok": True})
     emit(out13)
+
+    # 14. the device query engine against the host VM on that conversation.
+    out14 = asyncio.run(engine_phase(dev, conv, raw))
+    del conv, raw
+    out14.update({"nvidia_smi": smi_line(), "ok": True})
+    emit(out14)
 
     # --------------------------------------------------------------- summary
     for name in ENTRIES:

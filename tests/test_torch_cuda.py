@@ -916,3 +916,92 @@ def test_conversation_on_cuda_matches_cpu(dev, monkeypatch):
         for g, w in zip(got, want):
             assert abs(g.score - w.score) <= tol
             assert g.message_ordinal in {x.message_ordinal for x in want} or abs(g.score - want[-1].score) <= tol
+
+
+def _postings_case(rng, n_postings=1_000_000, n_terms=2_000, n_semrefs=300_000, n_ops=2_000):
+    """1M postings in CSR and ops (exact, related, boost; gates; two scope
+    rows) that read every one of them."""
+    from typeagent_tpu_torch.ops import postings as P
+
+    term_of = np.sort(rng.integers(n_terms, size=n_postings))
+    offsets = np.zeros(n_terms + 1, np.int64)
+    np.cumsum(np.bincount(term_of, minlength=n_terms), out=offsets[1:])
+    semrefs = rng.integers(n_semrefs, size=n_postings).astype(np.int32)
+    scores = rng.uniform(0.5, 1.0, n_postings).astype(np.float32)
+    cap = P.round_up(n_semrefs, 1024)
+    ops = (
+        rng.permutation(n_terms)[:n_ops].astype(np.int64),
+        rng.uniform(0.5, 100.0, n_ops).astype(np.float32),
+        rng.integers(40, size=n_ops),
+        rng.choice([P.OP_EXACT, P.OP_RELATED, P.OP_BOOST], p=[0.45, 0.45, 0.1], size=n_ops),
+        rng.permutation(n_ops),
+        np.where(rng.random(n_ops) < 0.1, rng.integers(4, size=n_ops), -1),
+        rng.integers(2, size=n_ops),
+    )
+    masks = np.stack([np.ones(cap, bool), rng.random(cap) < 0.5])
+    ktype = rng.integers(4, size=cap).astype(np.int8)
+    return (offsets, semrefs, scores, *ops, masks, ktype), cap
+
+
+def test_postings_core_on_cuda_matches_cpu_and_repeats_bits(dev):
+    """The sorted core (COO form) at 1M postings: the same runs and op hits
+    on the card as on the CPU, sums within 1e-6, and the same bits from two
+    runs on the card (no atomic float sums)."""
+    from typeagent_tpu_torch.ops import postings as P
+
+    arrays, cap = _postings_case(np.random.default_rng(13))
+    statics = dict(e_pad=1 << 21, semref_cap=cap, n_seg=40, dedup_related=True, r_max=1 << 21)
+    out = {}
+    for device in ("cpu", dev):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+        out[str(device)] = [P.accumulate_postings_segmented_coo(*args, 10.0, **statics) for _ in range(2)]
+    (c_keys, c_sums, c_n, c_hit), _ = out["cpu"]
+    (g_keys, g_sums, g_n, g_hit), again = out[str(dev)]
+    for a, b in zip((g_keys, g_sums, g_n, g_hit), again):
+        assert torch.equal(a, b)
+    n = int(c_n)
+    assert int(g_n) == n > 500_000
+    assert torch.equal(g_keys.cpu(), c_keys) and torch.equal(g_hit.cpu(), c_hit)
+    torch.testing.assert_close(g_sums.cpu()[:, :n], c_sums[:, :n], rtol=1e-6, atol=1e-6)
+
+
+def test_query_engine_on_cuda_matches_cpu(dev):
+    """query() on a 600-message conversation with stage 3 on the device
+    engine, on the card and on the CPU: route "device" for every question,
+    the same answers, stage-3 ordinals equal and scores within 1e-5."""
+    import asyncio
+
+    from typeagent_tpu_torch.knowpro import answers, searchlang
+    from typeagent_tpu_torch.models.canned import CannedChatModel
+
+    from test_torch_conv_corpus import make_corpus, make_questions, port_conversation
+
+    raw = make_corpus(7, 600, vocab=400, speakers=12)
+    questions = make_questions(raw, 8)
+
+    async def ask(device):
+        conv, _ = await port_conversation(raw, 1, d=64, device=device)
+        model = CannedChatModel(questions)
+        conv._query_translator = searchlang.create_search_query_translator(model)
+        conv._answer_translator = answers.create_answer_translator(model)
+        out = []
+        for q in questions:
+            debug = searchlang.LanguageSearchDebugContext()
+            answer = await conv.query(q, debug_context=debug)
+            out.append((answer, conv._last_engine_route, [
+                {k: [(m.semantic_ref_ordinal, m.score) for m in r.semantic_ref_matches]
+                 for k, r in res.knowledge_matches.items()}
+                for res in debug.search_results
+            ]))
+        assert conv._device_executor._postings._offsets.device.type == torch.device(device).type
+        return out
+
+    cpu, card = asyncio.run(ask("cpu")), asyncio.run(ask("cuda"))
+    for (a_cpu, r_cpu, s_cpu), (a_card, r_card, s_card) in zip(cpu, card):
+        assert r_cpu == r_card == "device"
+        assert a_cpu == a_card
+        for x, y in zip(s_cpu, s_card):
+            assert x.keys() == y.keys()
+            for k in x:
+                assert [o for o, _ in x[k]] == [o for o, _ in y[k]]
+                assert max((abs(p - q) for (_, p), (_, q) in zip(x[k], y[k])), default=0.0) <= 1e-5

@@ -78,6 +78,7 @@ def test_import_compiles_nothing():
         "from typeagent_tpu_torch import native\n"
         "assert _build._kernels is None\n"
         "assert native._results_mod is None and not native._results_attempted\n"
+        "assert native._interner_lib is None and not native._interner_attempted\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(PKG.parent))
@@ -200,9 +201,9 @@ def test_package_has_the_conversation_modules():
 
 def test_query_and_streaming_run_without_jax_pydantic_httpx():
     """``query()`` through the canned chat model (typed translator, search
-    compile, the host VM, answers) and ``add_messages_streaming`` run in a
-    process where importing jax, ml_dtypes, pydantic, httpx or
-    ``typeagent_tpu`` fails."""
+    compile, stage 3 on the device engine, its default route, on CPU
+    tensors, answers) and ``add_messages_streaming`` run in a process where
+    importing jax, ml_dtypes, pydantic, httpx or ``typeagent_tpu`` fails."""
     code = (
         "import builtins\n"
         "real = builtins.__import__\n"
@@ -245,6 +246,8 @@ def test_query_and_streaming_run_without_jax_pydantic_httpx():
         "    conv._answer_translator = answers.create_answer_translator(model)\n"
         "    answer = await conv.query('What did Bach write?')\n"
         "    assert 'fugues' in answer and 'Search failed' not in answer, answer\n"
+        "    assert conv._last_engine_route == 'device', conv._last_engine_route\n"
+        "    assert conv._device_executor._postings._offsets.device.type == 'cpu'\n"
         "    assert model.calls['stage1'] == 1 and model.calls['answer'] >= 1, model.calls\n"
         "asyncio.run(run())\n"
         "print('ok')\n"
@@ -274,5 +277,8 @@ def test_package_has_the_query_modules():
         "typeagent_tpu_torch.knowpro.answers",
         "typeagent_tpu_torch.knowpro.convknowledge",
         "typeagent_tpu_torch.knowpro.add_messages",
+        "typeagent_tpu_torch.ops.postings",
+        "typeagent_tpu_torch.knowpro.device_executor",
+        "typeagent_tpu_torch.knowpro.engine_batcher",
     ):
         assert name in MODULES

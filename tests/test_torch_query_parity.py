@@ -4,10 +4,10 @@ The same seed-made conversation (``test_torch_conv_corpus.py``'s corpus
 and extractor, the fake embedding model at d = 16) is built in both
 packages, and the 16 questions of ``make_questions`` go through
 ``query()`` in each with a canned chat model (``models/canned.py``: the
-recorded stage-1 JSON, crafted answers) and a ``debug_context``. The port
-runs stage 3 on its host VM with ``device="cpu"``; the JAX package runs it
-twice, on its host VM (``use_device_executor="host"``) and on its default
-device engine. Compared, question by question:
+recorded stage-1 JSON, crafted answers) and a ``debug_context``. Each
+package runs stage 3 twice, on its host VM (``use_device_executor="host"``)
+and on its default device engine (the port's on CPU tensors). Compared,
+question by question, the port's host run against the JAX package's:
 
 * the stage-1 ``SearchQuery``, as serialized dicts: equal;
 * the compiled ``SearchQueryExpr`` list (after the search resolved its
@@ -25,10 +25,18 @@ device engine. Compared, question by question:
   its time-range section from ``convutils``, the ``[ANSWER CONTEXT]``
   prompts, the combine prompt), and the final answer, against the JAX
   host run: the same text, byte for byte.
+
+And the port's device engine: its route per question the JAX engine's
+(``_last_engine_route``), its stage 3 against the JAX device engine and the
+JAX host VM at 1e-4, its answers the JAX host run's, and before any result
+its state, the CSR postings built from the conversation: the interner's
+term -> id map, ``offsets``, ``semrefs``, ``scores``, ``_term_has_dups``,
+``_semref_ktype`` and the start and end keys equal to the JAX engine's.
 """
 
 import asyncio
 
+import numpy as np
 import pytest
 
 from typeagent_tpu.knowpro import answers as janswers
@@ -110,9 +118,9 @@ async def _ask(conv, model, questions, lang, serialize, search_options=None):
     return out
 
 
-def _host_options():
-    """query()'s default options, with the JAX host VM asked for."""
-    return jsearchlang.LanguageSearchOptions(
+def _host_options(lang=jsearchlang):
+    """query()'s default options, with the host VM asked for."""
+    return lang.LanguageSearchOptions(
         compile_options=jsearchlang.LanguageQueryCompileOptions(
             exact_scope=False, verb_scope=True, term_filter=None, apply_scope=True
         ),
@@ -133,12 +141,15 @@ def runs():
         settings.semantic_ref_index_settings.knowledge_extractor = WordExtractor(jkplib, JSuccess)
         jax_conv, _ = await ingest(jcreate, settings, JMessage, JMeta, raw, 1)
         port = await _ask(port_conv, CannedChatModel(questions), questions, searchlang,
-                          fields.serialize_object)
+                          fields.serialize_object, _host_options(searchlang))
         host = await _ask(jax_conv, JCanned(questions), questions, jsearchlang,
                           jfields.serialize_object, _host_options())
         device = await _ask(jax_conv, JCanned(questions), questions, jsearchlang,
                             jfields.serialize_object)
-        return port, host, device
+        port_device = await _ask(port_conv, CannedChatModel(questions), questions, searchlang,
+                                 fields.serialize_object)
+        engines = (port_conv._device_executor, jax_conv._device_executor)
+        return port, host, device, port_device, engines
 
     return asyncio.run(go())
 
@@ -148,9 +159,9 @@ IDS = [f"{i}-{kind}" for i, kind in enumerate(QUESTION_KINDS)]
 
 
 def test_questions_cover_the_kinds(runs):
-    port, host, device = runs
-    assert {r["route"] for r in host} == {"host"}
-    assert {r["route"] for r in device} == {"device"}
+    port, host, device, port_device, _ = runs
+    assert {r["route"] for r in host} == {r["route"] for r in port} == {"host"}
+    assert {r["route"] for r in device} == {r["route"] for r in port_device} == {"device"}
     answers_ = [r["answer"] for r in port]
     nothing = QUESTION_KINDS.index("nothing")
     assert answers_[nothing].startswith("No answer found")
@@ -160,7 +171,7 @@ def test_questions_cover_the_kinds(runs):
 
 @pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
 def test_stage1_query_equal(runs, i):
-    port, host, device = runs
+    port, host, device = runs[:3]
     assert port[i]["query"] == host[i]["query"] == device[i]["query"]
 
 
@@ -181,7 +192,7 @@ def _related_as_sets(value):
 
 @pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
 def test_compiled_exprs_equal(runs, i):
-    port, host, _ = runs
+    port, host, _ = runs[:3]
     assert _related_as_sets(port[i]["exprs"]) == _related_as_sets(host[i]["exprs"])
 
 
@@ -205,7 +216,7 @@ def _close_up_to_ties(a: list, b: list, tol: float) -> None:
 
 @pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
 def test_stage3_equal_to_jax_host_vm(runs, i):
-    port, host, _ = runs
+    port, host, _ = runs[:3]
     assert len(port[i]["results"]) == len(host[i]["results"])
     for p, h in zip(port[i]["results"], host[i]["results"]):
         _close_up_to_ties(p["messages"], h["messages"], TOL)
@@ -217,7 +228,7 @@ def test_stage3_equal_to_jax_host_vm(runs, i):
 
 @pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
 def test_stage3_close_to_jax_device_engine(runs, i):
-    port, _, device = runs
+    port, _, device = runs[:3]
     assert len(port[i]["results"]) == len(device[i]["results"])
     for p, d in zip(port[i]["results"], device[i]["results"]):
         _close_up_to_ties(p["messages"], d["messages"], TOL_DEVICE)
@@ -230,7 +241,7 @@ def test_stage3_close_to_jax_device_engine(runs, i):
 
 @pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
 def test_prompts_byte_identical(runs, i):
-    port, host, _ = runs
+    port, host, _ = runs[:3]
     assert port[i]["prompts"] == host[i]["prompts"]
     texts = [content for prompt in port[i]["prompts"] for _, content in prompt]
     assert any("[ANSWER CONTEXT]" in t for t in texts) or QUESTION_KINDS[i] == "nothing"
@@ -240,5 +251,68 @@ def test_prompts_byte_identical(runs, i):
 
 @pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
 def test_answer_equal(runs, i):
-    port, host, _ = runs
+    port, host, _ = runs[:3]
     assert port[i]["answer"] == host[i]["answer"]
+
+
+def test_engine_state_equal_to_jax(runs):
+    """The CSR postings both engines build from the conversation, before
+    any result is compared."""
+    port_engine, jax_engine = runs[4]
+    pp, jp = port_engine._postings, jax_engine._postings
+    assert len(pp) == len(jp) and pp._n_semrefs == jp._n_semrefs
+    assert pp._semref_cap == jp._semref_cap
+    n_terms = len(jp)
+    offsets = np.asarray(jp._offsets_host)[: n_terms + 1]
+    np.testing.assert_array_equal(pp._offsets_host, offsets)
+    n = int(offsets[-1])
+    np.testing.assert_array_equal(pp._semrefs_host, np.asarray(jp._semrefs_host)[:n])
+    np.testing.assert_array_equal(pp._scores.cpu().numpy(), np.asarray(jp._scores)[:n])
+    np.testing.assert_array_equal(pp._term_has_dups, jp._term_has_dups)
+    for name in ("_semref_ktype", "_sem_start_key", "_sem_end_key"):
+        np.testing.assert_array_equal(getattr(port_engine, name), getattr(jax_engine, name))
+    # The term -> id map, over every term the engine interns: the semref
+    # index's terms and the property index's keys.
+    port_conv = port_engine.conversation
+    index = asyncio.run(port_conv.semantic_ref_index.get_terms())
+    props = asyncio.run(port_conv.secondary_indexes.property_to_semantic_ref_index.all_postings())
+    terms = {t: jp.lookup(t) for t in list(index) + ["prop!" + key for key, _, _ in props]}
+    assert sorted(set(terms.values())) == list(range(n_terms))
+    for term, ident in terms.items():
+        assert pp.lookup(term) == ident, term
+
+
+@pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
+def test_route_equal_to_jax(runs, i):
+    _, _, device, port_device, _ = runs
+    assert port_device[i]["route"] == device[i]["route"] == "device"
+
+
+def _stage3_close(a: dict, b: dict, tol: float) -> None:
+    assert len(a["results"]) == len(b["results"])
+    for p, d in zip(a["results"], b["results"]):
+        _close_up_to_ties(p["messages"], d["messages"], tol)
+        assert p["knowledge"].keys() == d["knowledge"].keys()
+        for ktype in p["knowledge"]:
+            assert p["knowledge"][ktype]["terms"] == d["knowledge"][ktype]["terms"]
+            rank = lambda pairs: sorted(pairs, key=lambda x: (-x[1], x[0]))  # noqa: E731
+            _close_up_to_ties(rank(p["knowledge"][ktype]["semrefs"]),
+                              rank(d["knowledge"][ktype]["semrefs"]), tol)
+
+
+@pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
+def test_device_engine_close_to_jax_device_engine(runs, i):
+    _, _, device, port_device, _ = runs
+    _stage3_close(port_device[i], device[i], TOL_DEVICE)
+
+
+@pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
+def test_device_engine_close_to_jax_host_vm(runs, i):
+    _, host, _, port_device, _ = runs
+    _stage3_close(port_device[i], host[i], TOL_DEVICE)
+
+
+@pytest.mark.parametrize("i", QUESTIONS, ids=IDS)
+def test_device_engine_answer_equal(runs, i):
+    _, host, _, port_device, _ = runs
+    assert port_device[i]["answer"] == host[i]["answer"]

@@ -8,13 +8,16 @@ that carries the suite's (``test_<suite>__<test>``, ``Test_<suite>__<Class>``),
 so pytest collects each test as a case of this file, parametrized tests
 expanded, with the suite's own fixtures and asserts.
 
-Two things differ from the JAX run, both in the names the suites see, not
-in the tests: ``TextEmbeddingIndexSettings`` and ``ConversationSettings``
-are given ``device="cpu"`` (the port's stores default to the card), and
-stage 3 runs on the host VM, the port's only route (the JAX suites run on
-its default device engine, ROADMAP.md Queue 1 item 4).
+One thing differs from the JAX run, in the names the suites see, not in
+the tests: the port's devices default to the card, so
+``TextEmbeddingIndexSettings``, ``ConversationSettings`` and
+``DevicePostingsIndex`` are given ``device="cpu"``, and the suites'
+settings-less ``FakeConversation`` carries ``settings.device`` = cpu for the
+device query engine. Stage 3 runs on the port's default engine, the device
+engine on CPU tensors, as the JAX suites run on theirs.
 
 The tests the port cannot run are in :data:`EXCLUDED`, each with its reason.
+:func:`mirror` is shared with ``test_torch_engine_suites.py``.
 """
 
 import functools
@@ -25,8 +28,10 @@ import sys
 import types
 
 import pytest
+import torch
 from _pytest import fixtures
 
+from typeagent_tpu_torch.ops.postings import DevicePostingsIndex
 from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings
 
 TESTS = pathlib.Path(__file__).resolve().parent
@@ -82,8 +87,13 @@ def _load(suite: str) -> types.ModuleType:
     module.__file__ = str(TESTS / suite)
     sys.modules[name] = module
     exec(compile(_source(suite), f"<{suite} against typeagent_tpu_torch>", "exec"), module.__dict__)
-    # The suites build embedding settings with the store's default device.
+    # The suites build embedding settings and postings indexes with the
+    # default device, and conversations without settings.
     module.TextEmbeddingIndexSettings = functools.partial(TextEmbeddingIndexSettings, device="cpu")
+    if "DevicePostingsIndex" in vars(module):
+        module.DevicePostingsIndex = functools.partial(DevicePostingsIndex, device="cpu")
+    if "FakeConversation" in vars(module) and _own(module, module.FakeConversation):
+        module.FakeConversation.settings = types.SimpleNamespace(device=torch.device("cpu"))
     return module
 
 
@@ -99,33 +109,37 @@ def _own(module: types.ModuleType, obj) -> bool:
     )
 
 
-MIRRORED: dict[str, list[str]] = {}
-_fixtures: dict[str, str] = {}
-for _suite in SUITES:
-    _module = _load(_suite)
-    _stem = pathlib.Path(_suite).stem
-    MIRRORED[_suite] = []
-    for _name, _obj in list(vars(_module).items()):
-        if _is_fixture(_obj) and _own(_module, _obj):
-            assert _name not in _fixtures, f"fixture {_name} of {_suite} and {_fixtures[_name]}"
-            _fixtures[_name] = _suite
-            globals()[_name] = _obj
-        elif (_suite, _name) in EXCLUDED:
-            continue
-        elif _name.startswith("test_") and inspect.isfunction(_obj) and _own(_module, _obj):
-            globals()[f"test_{_stem[5:]}__{_name}"] = _obj
-            MIRRORED[_suite].append(_name)
-        elif _name.startswith("Test") and inspect.isclass(_obj) and _own(_module, _obj):
-            for _method in [m for m in vars(_obj) if m.startswith("test_")]:
-                if (_suite, f"{_name}.{_method}") in EXCLUDED:
-                    delattr(_obj, _method)
-                else:
-                    MIRRORED[_suite].append(f"{_name}.{_method}")
-            globals()[f"Test_{_stem[5:]}__{_name}"] = _obj
-del _suite, _module, _stem, _name, _obj, _method
+def mirror(suites, excluded: dict, namespace: dict) -> dict[str, list[str]]:
+    """Load each suite and put its tests, classes and fixtures into
+    ``namespace`` (a test module's globals) under the suite's name; returns
+    the tests mirrored per suite."""
+    mirrored: dict[str, list[str]] = {}
+    owners: dict[str, str] = {}
+    for suite in suites:
+        module = _load(suite)
+        stem = pathlib.Path(suite).stem
+        mirrored[suite] = []
+        for name, obj in list(vars(module).items()):
+            if _is_fixture(obj) and _own(module, obj):
+                assert name not in owners, f"fixture {name} of {suite} and {owners[name]}"
+                owners[name] = suite
+                namespace[name] = obj
+            elif (suite, name) in excluded:
+                continue
+            elif name.startswith("test_") and inspect.isfunction(obj) and _own(module, obj):
+                namespace[f"test_{stem[5:]}__{name}"] = obj
+                mirrored[suite].append(name)
+            elif name.startswith("Test") and inspect.isclass(obj) and _own(module, obj):
+                for method in [m for m in vars(obj) if m.startswith("test_")]:
+                    if (suite, f"{name}.{method}") in excluded:
+                        delattr(obj, method)
+                    else:
+                        mirrored[suite].append(f"{name}.{method}")
+                namespace[f"Test_{stem[5:]}__{name}"] = obj
+    return mirrored
 
 
-def _suite_tests(suite: str) -> set[str]:
+def suite_tests(suite: str) -> set[str]:
     """Every test the suite's source defines, by name (methods as Class.test)."""
     import ast
 
@@ -143,12 +157,21 @@ def _suite_tests(suite: str) -> set[str]:
     return out
 
 
+def check_mirrored(suites, excluded: dict, mirrored: dict[str, list[str]]) -> None:
+    """Each test of each suite is mirrored or stands in ``excluded`` with
+    its reason; nothing else is left out."""
+    for suite in suites:
+        defined = suite_tests(suite)
+        left_out = {name for s, name in excluded if s == suite}
+        assert set(mirrored[suite]) == defined - left_out, suite
+        assert left_out <= defined, suite
+    assert all(reason for reason in excluded.values())
+
+
+MIRRORED = mirror(SUITES, EXCLUDED, globals())
+
+
 def test_every_suite_test_is_mirrored_or_excluded():
     """Each test of each suite is a case here or stands in EXCLUDED with
     its reason; nothing else is left out."""
-    for suite in SUITES:
-        defined = _suite_tests(suite)
-        excluded = {name for s, name in EXCLUDED if s == suite}
-        assert set(MIRRORED[suite]) == defined - excluded, suite
-        assert excluded <= defined, suite
-    assert all(reason for reason in EXCLUDED.values())
+    check_mirrored(SUITES, EXCLUDED, MIRRORED)

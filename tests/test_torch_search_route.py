@@ -1,12 +1,14 @@
-"""The port's stage-3 route: the host VM, and nothing in its place.
+"""The port's stage-3 routes, as the JAX package routes them.
 
-The JAX package's default engine is its device executor, which the port
-does not have yet (ROADMAP.md Queue 1 item 4). So the port's
-``SearchOptions`` default to the host VM, and every way of asking for the
-device engine (``use_device_executor=True``, ``"device"``, ``"auto"``, or
-``TAT_ENGINE_ROUTE`` set to ``device`` or ``auto``) raises
-``NotImplementedError`` naming item 4 when a search resolves its route,
-never a host answer in its place. Importing the package never raises.
+``SearchOptions().use_device_executor`` defaults to the device engine
+(``knowpro/device_executor.py``) unless ``TAT_ENGINE_ROUTE`` says host or
+auto, read when the options are made; the host vocabulary runs the host VM;
+``"auto"`` samples both engines. A query the engine cannot express
+(``_Unsupported``) runs on the host VM and the conversation notes "host
+(device fallback)". One deliberate departure from the JAX package: an
+exception in the engine propagates and is never answered by the host VM.
+A conversation with a data-parallel ``_device_mesh`` raises naming
+ROADMAP.md Queue 1 item 9. Everything runs on CPU tensors.
 """
 
 import asyncio
@@ -17,8 +19,13 @@ import sys
 
 import pytest
 
-from typeagent_tpu_torch.knowpro import search
+from typeagent_tpu_torch.knowpro import device_executor, search
 from typeagent_tpu_torch.knowpro.interfaces import SearchTerm, SearchTermGroup, Term
+from typeagent_tpu_torch.knowpro.query import (
+    GroupSearchResultsExpr,
+    MatchSearchTermExpr,
+    MatchTermsOrExpr,
+)
 from typeagent_tpu_torch.knowpro.search import (
     SearchOptions,
     search_conversation,
@@ -29,6 +36,7 @@ from typeagent_tpu_torch.knowpro.search import (
 from test_torch_conv_corpus import make_corpus, port_conversation
 
 GROUP = SearchTermGroup(boolean_op="or", terms=[SearchTerm(Term("word1"))])
+ENTRIES = ("single", "batch", "search")
 
 
 @pytest.fixture(scope="module")
@@ -36,38 +44,81 @@ def conv():
     return asyncio.run(port_conversation(make_corpus(31, 40)))[0]
 
 
-def test_default_route_is_the_host_vm(monkeypatch, conv):
+def _run(conv, entry: str, options: SearchOptions):
+    """Stage-3 results of one search through ``entry``."""
+    async def go():
+        if entry == "single":
+            return await search_conversation_knowledge(conv, GROUP, options=options)
+        if entry == "batch":
+            return (await search_conversation_knowledge_batch(conv, [(GROUP, None)], options))[0]
+        return (await search_conversation(conv, GROUP, options=options, raw_search_query="word1")).knowledge_matches
+
+    return asyncio.run(go())
+
+
+def _scores(result) -> dict:
+    return {
+        (ktype, m.semantic_ref_ordinal): m.score
+        for ktype, r in (result or {}).items()
+        for m in r.semantic_ref_matches
+    }
+
+
+@pytest.fixture
+def host_result(conv):
+    return _scores(_run(conv, "single", SearchOptions(use_device_executor="host")))
+
+
+def test_default_route_is_the_device_engine(monkeypatch, conv, host_result):
     monkeypatch.delenv("TAT_ENGINE_ROUTE", raising=False)
-    assert SearchOptions().use_device_executor is False
-    found = asyncio.run(search_conversation(conv, GROUP, options=SearchOptions(), raw_search_query="word1"))
-    assert found is not None and found.knowledge_matches
+    assert SearchOptions().use_device_executor is True
+    found = _run(conv, "search", SearchOptions())
+    assert conv._last_engine_route == "device"
+    assert found and _scores(found) == pytest.approx(host_result)
 
 
 @pytest.mark.parametrize("value", ["host", "vm", "0", "false", False, "HOST"])
-def test_host_vocabulary_runs(value, conv):
-    options = SearchOptions(use_device_executor=value)
-    assert asyncio.run(search_conversation_knowledge(conv, GROUP, options=options))
+def test_host_vocabulary_runs(monkeypatch, value, conv, host_result):
+    async def no_engine(*args, **kwargs):
+        raise AssertionError("the device engine ran for a host request")
+
+    monkeypatch.setattr(search, "_execute_on_device", no_engine)
+    got = _run(conv, "single", SearchOptions(use_device_executor=value))
+    assert conv._last_engine_route == "host"
+    assert _scores(got) == pytest.approx(host_result)
 
 
-@pytest.mark.parametrize("value", [True, "device", "auto", "1", "true"])
-@pytest.mark.parametrize("entry", ["single", "batch", "search"])
-def test_device_requests_raise_naming_item_4(value, entry, conv):
-    options = SearchOptions(use_device_executor=value)
-    calls = {
-        "single": lambda: search_conversation_knowledge(conv, GROUP, options=options),
-        "batch": lambda: search_conversation_knowledge_batch(conv, [(GROUP, None)], options),
-        "search": lambda: search_conversation(conv, GROUP, options=options),
-    }
-    with pytest.raises(NotImplementedError, match="item 4"):
-        asyncio.run(calls[entry]())
+@pytest.mark.parametrize("value", [True, "device", "1", "true"])
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_device_requests_run_the_engine(value, entry, conv, host_result):
+    got = _run(conv, entry, SearchOptions(use_device_executor=value))
+    assert conv._last_engine_route == "device"
+    assert _scores(got) == pytest.approx(host_result, rel=1e-6)
 
 
-@pytest.mark.parametrize("env", ["device", "auto", "1"])
-def test_engine_route_env_raises_at_the_search_not_at_import(monkeypatch, env, conv):
+@pytest.mark.parametrize("entry", ["single", "batch"])
+def test_auto_probes_both_engines(entry, conv, host_result):
+    conv._engine_router = None
+    options = SearchOptions(use_device_executor="auto")
+    routes = []
+    for _ in range(2):
+        got = _run(conv, entry, options)
+        routes.append(conv._last_engine_route)
+        assert _scores(got) == pytest.approx(host_result, rel=1e-6)
+    assert routes == ["device", "host"]
+    router = conv._engine_router
+    assert router.ms["device"] is not None and router.ms["host"] is not None
+
+
+@pytest.mark.parametrize(
+    ("env", "value"),
+    [("device", True), ("auto", "auto"), ("host", False), ("vm", False), ("1", True), ("", True)],
+)
+def test_engine_route_env_is_read_when_options_are_made(monkeypatch, env, value):
     monkeypatch.setenv("TAT_ENGINE_ROUTE", env)
-    options = SearchOptions()  # the variable is read here, as the options are made
-    with pytest.raises(NotImplementedError, match="item 4"):
-        asyncio.run(search_conversation_knowledge(conv, GROUP, options=options))
+    assert SearchOptions().use_device_executor == value
+    monkeypatch.setenv("TAT_ENGINE_ROUTE", "host" if value is not False else "device")
+    assert SearchOptions().use_device_executor != value
 
 
 def test_package_imports_with_device_route_env():
@@ -80,28 +131,64 @@ def test_package_imports_with_device_route_env():
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("name", ["_try_device_executor", "_execute_on_device"])
-def test_device_engine_entry_points_raise(name, conv):
-    fn = getattr(search, name)
-    args = (conv, None, SearchOptions()) if name == "_try_device_executor" else (conv, [])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        asyncio.run(fn(*args))
+@pytest.mark.parametrize("coalesce", ["1", "0"])
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_no_host_answer_when_the_device_is_asked_for(monkeypatch, conv, entry, coalesce):
+    """An exception in the engine reaches the caller (through the batcher
+    as its RuntimeError) and the host VM is not asked in its place."""
+    async def boom(self, queries, context):
+        raise ValueError("engine down")
 
-
-def test_no_host_answer_when_the_device_is_asked_for(conv):
-    """A device request raises before any host work: the conversation's
-    search is not run and no result comes back."""
     ran = []
     real = search.run_query
 
-    async def spy(*args, **kwargs):
-        ran.append(True)
-        return await real(*args, **kwargs)
+    async def spy(conversation, options, query):
+        ran.append(type(query).__name__)
+        return await real(conversation, options, query)
 
-    search.run_query = spy
-    try:
-        with pytest.raises(NotImplementedError):
-            asyncio.run(search_conversation(conv, GROUP, options=SearchOptions(use_device_executor=True)))
-    finally:
-        search.run_query = real
-    assert not ran
+    monkeypatch.setenv("TAT_ENGINE_COALESCE", coalesce)
+    monkeypatch.setattr(device_executor.DeviceQueryExecutor, "execute_batch", boom)
+    monkeypatch.setattr(search, "run_query", spy)
+    conv._engine_batcher = None
+    with pytest.raises((ValueError, RuntimeError), match="engine down"):
+        _run(conv, entry, SearchOptions(use_device_executor=True))
+    assert "GroupSearchResultsExpr" not in ran
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_unsupported_tree_runs_the_host_vm_and_says_so(monkeypatch, conv, entry, host_result):
+    def unsupported(self, expr):
+        raise device_executor._Unsupported
+
+    monkeypatch.setattr(device_executor.DeviceQueryExecutor, "_compile_tree", unsupported)
+    got = _run(conv, entry, SearchOptions(use_device_executor=True))
+    assert conv._last_engine_route == "host (device fallback)"
+    assert _scores(got) == pytest.approx(host_result)
+
+
+def test_custom_booster_is_unsupported(conv):
+    """A real inexpressible shape: a term expression with its own score
+    booster and no declared entity boost."""
+    async def go():
+        executor, context = await search._get_device_executor(conv)
+        expr = MatchSearchTermExpr(SearchTerm(Term("word1")), lambda t, sr, scored: scored)
+        return await executor.execute(GroupSearchResultsExpr(MatchTermsOrExpr([expr], None)), context)
+
+    assert asyncio.run(go()) is None
+
+
+def test_device_mesh_raises_naming_item_9(monkeypatch, conv):
+    monkeypatch.setattr(conv, "_device_mesh", object(), raising=False)
+    monkeypatch.setattr(conv, "_device_executor", None, raising=False)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        device_executor.DeviceQueryExecutor(conv)
+    # Through the EngineBatcher, which hands its waiters a RuntimeError
+    # naming the engine's error.
+    with pytest.raises((NotImplementedError, RuntimeError), match="item 9"):
+        _run(conv, "single", SearchOptions(use_device_executor=True))
+
+
+def test_engine_runs_on_the_conversations_device(conv):
+    executor, _ = asyncio.run(search._get_device_executor(conv))
+    assert executor.device == conv.settings.device
+    assert executor._postings._offsets.device == conv.settings.device

@@ -11,16 +11,21 @@
   * non-exact queries resolve related terms over select (dedupe) + predicate +
     scope term groups.)
 
-The port of ``typeagent_tpu/knowpro/search.py``, host route only. The
-JAX package runs stage 3 by default on its device engine
-(``knowpro/device_executor.py``), which is not ported yet (ROADMAP.md Queue
-1 item 4). So here the compiled tree always runs on the host VM
-(``knowpro/query.py``), and a caller who asks for the device engine, by
-``SearchOptions.use_device_executor`` (``True``, ``"device"``, ``"auto"``)
-or by ``TAT_ENGINE_ROUTE=device|auto``, gets ``NotImplementedError`` when
-the search resolves its route: never a host answer in its place.
+The port of ``typeagent_tpu/knowpro/search.py``. As in the JAX package,
+``SearchOptions(use_device_executor=...)`` picks the stage-3 engine, by
+default the device engine (``knowpro/device_executor.py``, through the
+``EngineBatcher`` of ``knowpro/engine_batcher.py``): True / "device" the
+device engine, False / "host" the host VM (``knowpro/query.py``), "auto"
+the faster of the two by measured latency; the default is read from
+``TAT_ENGINE_ROUTE`` (device|host|auto) when the options are made. A query
+the engine cannot express (``None`` from it) runs on the host VM and the
+conversation notes the route "host (device fallback)", as in JAX: that is
+routing by the query's shape. One deliberate departure: the JAX package
+catches any engine exception and answers from the host VM; the port does
+not, so a launch failure, an out-of-memory or a wrong device propagates to
+the caller instead of hiding behind a host answer.
 
-Besides the JAX package's ``search.knowledge`` span (stage 3 on the VM),
+Besides the JAX package's ``search.knowledge`` span (stage 3, on either engine),
 the port records ``search.compile`` (the knowledge query's compile, related
 terms resolved) and ``search.messages`` (the message query: its compile,
 the embedding re-rank and its run), so that a query's time can be split
@@ -29,10 +34,16 @@ by stage.
 
 from __future__ import annotations
 
+import asyncio
 import os
+import time
 from collections.abc import Callable
 from dataclasses import field
-from typing import TypeGuard, cast
+from typing import TYPE_CHECKING, TypeGuard, cast
+
+if TYPE_CHECKING:
+    from .device_executor import DeviceQueryExecutor
+    from .engine_batcher import EngineBatcher
 
 from ..storage.memory.messageindex import IMessageTextEmbeddingIndex
 from ..storage.memory.reltermsindex import resolve_related_terms
@@ -168,17 +179,13 @@ class SearchQueryExpr:
 
 
 def _default_engine_route() -> bool | str:
-    """``TAT_ENGINE_ROUTE`` as a ``use_device_executor`` value.
-
-    Unset, the port's default is the host route (``False``), where the JAX
-    package's is its device engine: that engine is not ported (ROADMAP.md
-    Queue 1 item 4). Read when ``SearchOptions`` are made, so that a bad
-    value raises at the search, not at import.
-    """
+    """``TAT_ENGINE_ROUTE`` as a ``use_device_executor`` value: the device
+    engine (True) unless it says host or auto. Read when ``SearchOptions``
+    are made."""
     v = os.environ.get("TAT_ENGINE_ROUTE", "").strip().lower()
     if v == "auto":
         return "auto"
-    if v in ("", "host", "vm", "0", "false"):
+    if v in ("host", "vm", "0", "false"):
         return False
     return True
 
@@ -195,19 +202,69 @@ def _route_device(value: bool | str) -> bool:
     return bool(value)
 
 
-def _device_engine_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the device query engine (knowpro/device_executor.py) is not "
-        "ported yet (ROADMAP.md Queue 1 item 4); use "
-        'SearchOptions(use_device_executor="host") or leave TAT_ENGINE_ROUTE unset'
-    )
+class _EngineRouter:
+    """Latency-adaptive device-vs-host routing for ``use_device_executor="auto"``.
+
+    Both engines return the same results (pinned by the differential
+    suites), so routing is purely a latency decision. Per conversation:
+    sample each engine once, then follow the faster EMA while re-probing
+    the slower one periodically — latency shifts with conversation growth.
+    """
+
+    PROBE_EVERY = 32
+    ALPHA = 0.3
+
+    def __init__(self) -> None:
+        self.ms: dict[str, float | None] = {"device": None, "host": None}
+        self.calls = 0
+
+    def pick(self) -> str:
+        self.calls += 1
+        if self.ms["device"] is None:
+            return "device"
+        if self.ms["host"] is None:
+            return "host"
+        fast = "device" if self.ms["device"] <= self.ms["host"] else "host"
+        if self.calls % self.PROBE_EVERY == 0:
+            return "host" if fast == "device" else "device"
+        return fast
+
+    def record(self, engine: str, ms: float) -> None:
+        cur = self.ms[engine]
+        self.ms[engine] = (
+            ms if cur is None else (1.0 - self.ALPHA) * cur + self.ALPHA * ms
+        )
 
 
-def _check_host_route(options: SearchOptions) -> None:
-    """Raise unless ``options`` ask for the host VM, the only route here."""
-    value = options.use_device_executor
-    if value == "auto" or _route_device(value):
-        raise _device_engine_unported(f"use_device_executor={value!r}")
+def _note_route(conversation: IConversation, route: str) -> None:
+    """Record the engine route the last search actually took (for @stage 3
+    REPL introspection and tests); best-effort on slots-only objects."""
+    try:
+        conversation._last_engine_route = route  # type: ignore[attr-defined]
+    except AttributeError:
+        pass
+
+
+def _engine_router(conversation: IConversation) -> _EngineRouter | None:
+    router = getattr(conversation, "_engine_router", None)
+    if router is None:
+        router = _EngineRouter()
+        try:
+            conversation._engine_router = router  # type: ignore[attr-defined]
+        except AttributeError:
+            return None  # slots-only conversations: route statically
+    return router
+
+
+def _pick_route(
+    conversation: IConversation, options: SearchOptions
+) -> tuple[bool, _EngineRouter | None]:
+    """(run the device engine?, the "auto" router or None)."""
+    if options.use_device_executor == "auto":
+        router = _engine_router(conversation)
+        if router is not None:
+            return router.pick() == "device", router
+    return _route_device(options.use_device_executor), None
 
 
 @dataclass
@@ -218,11 +275,12 @@ class SearchOptions:
     # Cumulative character cap for selected messages.
     max_chars_in_budget: int | None = None
     threshold_score: float | None = None
-    # The JAX package's engine switch, with its vocabulary: True / "device"
-    # (its device engine), "auto" (routed by latency), False / "host" (the
-    # host VM). Only the host VM is ported, so every other value raises when
-    # a search resolves its route. Env default: TAT_ENGINE_ROUTE, host when
-    # unset.
+    # Default engine: run the compiled knowledge query on the device engine
+    # (knowpro/device_executor.py) — related terms, scopes, boolean groups,
+    # wildcards and the entity boost included; a query it can't express
+    # runs on the host VM. "auto" routes adaptively by measured latency
+    # (both engines return the same results); False / "host" is the host
+    # VM. Env default: TAT_ENGINE_ROUTE=device|host|auto, device when unset.
     use_device_executor: bool | str = field(default_factory=_default_engine_route)
 
     def __repr__(self) -> str:
@@ -279,7 +337,6 @@ async def search_conversation_knowledge(
     options: SearchOptions | None = None,
 ) -> dict[KnowledgeType, SemanticRefSearchResult] | None:
     options = options or SearchOptions()
-    _check_host_route(options)
     if not is_conversation_searchable(conversation):
         return None
     assert conversation.secondary_indexes is not None, (
@@ -290,8 +347,34 @@ async def search_conversation_knowledge(
         knowledge_query = await compiler.compile_knowledge_query(
             search_term_group, when_filter, options
         )
+    route_device, router = _pick_route(conversation, options)
+    t_dev = None
+    if route_device:
+        # No except here (the module docstring): an engine error propagates.
+        with span("search.knowledge", route="device"):
+            t_dev = time.perf_counter()
+            device_result = await _try_device_executor(
+                conversation, knowledge_query, options
+            )
+        if device_result is not None:
+            if router is not None:
+                router.record("device", (time.perf_counter() - t_dev) * 1000.0)
+            _note_route(conversation, "device")
+            return device_result
     with span("search.knowledge", route="host"):
-        return await run_query(conversation, options, knowledge_query)
+        t0 = time.perf_counter()
+        _note_route(
+            conversation, "host (device fallback)" if t_dev is not None else "host"
+        )
+        result = await run_query(conversation, options, knowledge_query)
+        if router is not None:
+            router.record("host", (time.perf_counter() - t0) * 1000.0)
+            if t_dev is not None:
+                # The device engine could not express the query and we paid
+                # attempt + fallback: record that as the device sample, or
+                # ms["device"] stays None and pick() retries it forever.
+                router.record("device", (time.perf_counter() - t_dev) * 1000.0)
+        return result
 
 
 async def search_conversation_knowledge_batch(
@@ -299,13 +382,14 @@ async def search_conversation_knowledge_batch(
     selects: list[tuple[SearchTermGroup, WhenFilter | None]],
     options: SearchOptions | None = None,
 ) -> list[dict[KnowledgeType, SemanticRefSearchResult] | None]:
-    """Knowledge matches for MANY term groups, each on the host VM in turn.
+    """Knowledge matches for MANY term groups in fused device calls.
 
-    The JAX package runs the expressible ones as one segmented program on
-    its device engine (not ported: ROADMAP.md Queue 1 item 4).
+    All expressible queries' term lookups run as one segmented device
+    program (knowpro/device_executor.py); inexpressible ones run on the
+    host VM individually. The reference has no batch analogue — its VM
+    evaluates queries strictly one at a time.
     """
     options = options or SearchOptions()
-    _check_host_route(options)
     if not is_conversation_searchable(conversation):
         return [None] * len(selects)
     assert conversation.secondary_indexes is not None
@@ -318,10 +402,44 @@ async def search_conversation_knowledge_batch(
                     search_term_group, when_filter, options
                 )
             )
-    results: list[dict[KnowledgeType, SemanticRefSearchResult] | None] = []
-    for knowledge_query in compiled:
-        with span("search.knowledge", route="host"):
-            results.append(await run_query(conversation, options, knowledge_query))
+    results: list[dict[KnowledgeType, SemanticRefSearchResult] | None] = [None] * len(selects)
+    route_device, router = _pick_route(conversation, options)
+    t_dev = None
+    device_done = 0
+    if route_device:
+        # No except here (the module docstring): an engine error propagates.
+        with span("search.knowledge", route="device", batch=len(selects)):
+            t_dev = time.perf_counter()
+            results = list(await _execute_on_device(conversation, compiled))
+            device_done = sum(1 for r in results if r is not None)
+            if router is not None and device_done:
+                # Mixed batches (some queries device-inexpressible) must
+                # still record a sample, or ms["device"] stays None forever
+                # and pick() never probes the host.
+                router.record(
+                    "device", (time.perf_counter() - t_dev) * 1000.0 / device_done
+                )
+    host_t0 = time.perf_counter()
+    host_ran = 0
+    for i, knowledge_query in enumerate(compiled):
+        if results[i] is None:
+            host_ran += 1
+            with span("search.knowledge", route="host"):
+                results[i] = await run_query(conversation, options, knowledge_query)
+    if router is not None and host_ran:
+        router.record("host", (time.perf_counter() - host_t0) * 1000.0 / host_ran)
+        if t_dev is not None and not device_done:
+            # Every query fell back: charge the device the attempt +
+            # fallback so the router can converge to the host.
+            router.record("device", (time.perf_counter() - t_dev) * 1000.0 / host_ran)
+    if device_done and host_ran:
+        _note_route(conversation, f"mixed (device {device_done}, host {host_ran})")
+    elif device_done:
+        _note_route(conversation, "device")
+    else:
+        _note_route(
+            conversation, "host (device fallback)" if t_dev is not None else "host"
+        )
     return results
 
 
@@ -386,11 +504,77 @@ async def run_search_query(
     return results
 
 
+async def _get_device_executor(
+    conversation: IConversation,
+) -> tuple[DeviceQueryExecutor, QueryEvalContext]:
+    """Cached per-conversation device executor + an eval context.
+
+    Always returns a live (executor, context) pair — conversations that
+    forbid attribute caching just rebuild the executor per call. The
+    executor re-syncs (incrementally) when semrefs were appended.
+    """
+    from .device_executor import DeviceQueryExecutor
+
+    executor = getattr(conversation, "_device_executor", None)
+    semref_count = await conversation.semantic_refs.size()
+    if executor is None:
+        executor = DeviceQueryExecutor(conversation)
+        await executor.sync()
+        try:
+            conversation._device_executor = executor  # type: ignore[attr-defined]
+            conversation._device_executor_count = semref_count  # type: ignore[attr-defined]
+        except AttributeError:
+            pass  # conversation objects that forbid new attributes
+    elif getattr(conversation, "_device_executor_count", -1) != semref_count:
+        # Incremental: fold only the new semrefs into the device postings.
+        await executor.sync()
+        try:
+            conversation._device_executor_count = semref_count  # type: ignore[attr-defined]
+        except AttributeError:
+            pass
+    indexes = conversation.secondary_indexes
+    context = QueryEvalContext(
+        conversation,
+        indexes.property_to_semantic_ref_index if indexes else None,
+        indexes.timestamp_index if indexes else None,
+    )
+    return executor, context
+
+
+def _engine_coalesce_enabled() -> bool:
+    """TAT_ENGINE_COALESCE=0 disables cross-call dispatch coalescing; read
+    per call, so that one process can compare both."""
+    return os.environ.get("TAT_ENGINE_COALESCE", "1") == "1"
+
+
+def _get_engine_batcher(conversation: IConversation) -> EngineBatcher:
+    """Per-(conversation, event-loop) EngineBatcher.
+
+    A batcher's worker task dies with its event loop, so loop turnover
+    (every test, every asyncio.run) gets a fresh batcher; within one loop
+    all concurrent searches against the conversation share one."""
+    from .engine_batcher import EngineBatcher
+
+    loop = asyncio.get_running_loop()
+    batcher = getattr(conversation, "_engine_batcher", None)
+    if batcher is None or batcher.loop not in (None, loop):
+        batcher = EngineBatcher(conversation, _get_device_executor)
+        try:
+            conversation._engine_batcher = batcher  # type: ignore[attr-defined]
+        except AttributeError:
+            pass  # uncacheable conversation: batcher lives for this call only
+    return batcher
+
+
 async def _execute_on_device(
     conversation: IConversation, compiled: list[GroupSearchResultsExpr]
 ) -> list[dict[KnowledgeType, SemanticRefSearchResult] | None]:
-    """The JAX package's device-engine batch; not ported (Queue 1 item 4)."""
-    raise _device_engine_unported("_execute_on_device")
+    """Run compiled stage-3 queries on the device engine, coalescing with
+    concurrent callers' dispatches when enabled (knowpro/engine_batcher.py)."""
+    if _engine_coalesce_enabled():
+        return await _get_engine_batcher(conversation).execute_batch(compiled)
+    executor, context = await _get_device_executor(conversation)
+    return await executor.execute_batch(compiled, context)
 
 
 async def _try_device_executor(
@@ -398,8 +582,13 @@ async def _try_device_executor(
     knowledge_query: GroupSearchResultsExpr,
     options: SearchOptions,
 ) -> dict[KnowledgeType, SemanticRefSearchResult] | None:
-    """The JAX package's device-engine query; not ported (Queue 1 item 4)."""
-    raise _device_engine_unported("_try_device_executor")
+    """One compiled query on the device engine; None = the engine cannot
+    express it (the caller runs the host VM).
+
+    Evaluates the SAME compiled query tree the host VM would run, so the
+    device route sees identical weights, related terms, boosters and scopes.
+    """
+    return (await _execute_on_device(conversation, [knowledge_query]))[0]
 
 
 # ---------------------------------------------------------------------------

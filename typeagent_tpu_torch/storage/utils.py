@@ -2,10 +2,15 @@
 
 The port of ``typeagent_tpu/storage/utils.py``: the memory branch. SQLite
 storage is not ported yet (ROADMAP.md Queue 1 item 12), so a ``dbname``
-raises.
+raises. :func:`prepare_term` is the SQLite indexes' term normalization
+(``typeagent_tpu/storage/sqlite/indexes.py``), kept here for the device
+query engine until those indexes are ported.
 """
 
 from __future__ import annotations
+
+import re
+import unicodedata
 
 from ..knowpro.convsettings import MessageTextIndexSettings, RelatedTermIndexSettings
 from ..knowpro.interfaces import ConversationMetadata, IMessage, IStorageProvider
@@ -29,3 +34,9 @@ async def create_storage_provider[TMessage: IMessage](
     return MemoryStorageProvider(
         message_text_settings, related_terms_settings, metadata=metadata
     )
+
+
+def prepare_term(term: str) -> str:
+    """strip + NFC unicode normalize + whitespace collapse + lowercase."""
+    term = unicodedata.normalize("NFC", term.strip())
+    return re.sub(r"\s+", " ", term).lower()
