@@ -148,11 +148,14 @@ Phases, one JSON line each:
      host VM's (per knowledge type and for messages: the same ordinals, in
      the same order except among tied scores, scores within 1e-4); the
      answers equal the host route's; the second device pass gives the same
-     bits. Printed: per question its kind, route and stage-3 ms on each
+     bits; no action-scope selector is left to the host selector.
+     Printed: per question its kind, route and stage-3 ms on each
      route; the engine's spans (``engine.accumulate``: the device calls and
      their download; ``engine.combine``: the host combine); the profiler's
      top device ops and device-busy share; the engine's peak device memory
-     over the resident conversation; the card.
+     over the resident conversation; the sorted core's peak bytes per
+     posting read, which must lie within the memory guard's
+     ``_ENTRY_BYTES``, and the budgets the guard reckons; the card.
 
 Each corpus search is checked three ways: the API's hits are the kernel's
 output on the same operands, that output agrees with the plain version
@@ -1014,6 +1017,7 @@ async def engine_phase(dev, conv, raw: list[dict]):
     import torch
     from torch.profiler import ProfilerActivity
 
+    from typeagent_tpu_torch.knowpro import device_executor as DE
     from typeagent_tpu_torch.knowpro import searchlang
     from test_torch_conv_corpus import QUESTION_KINDS, make_questions
 
@@ -1033,6 +1037,8 @@ async def engine_phase(dev, conv, raw: list[dict]):
     host_wall_ms = (time.perf_counter() - t) * 1e3
     require(set(host["routes"]) == {"host"}, f"host pass routes: {host['routes']}")
 
+    executor = getattr(conv, "_device_executor", None)
+    host_selectors = executor.host_scope_selectors if executor is not None else 0
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1048,6 +1054,11 @@ async def engine_phase(dev, conv, raw: list[dict]):
     fallbacks = [(kind, r) for kind, r in zip(list(QUESTION_KINDS) * 2, device["routes"] + again["routes"])
                  if r != "device"]
     require(not fallbacks, f"device passes left the device engine: {fallbacks}")
+    # Action scopes: a message-derived scope selector the engine could not
+    # express is evaluated by the host selector; none may be.
+    executor = conv._device_executor
+    host_selectors = executor.host_scope_selectors - host_selectors
+    require(host_selectors == 0, f"{host_selectors} action-scope selectors left the device engine")
     require(again["results"] == device["results"] and again["answers"] == device["answers"],
             "a second device pass gave other bits")
     require(device["answers"] == host["answers"], "device-engine answers differ from the host VM's")
@@ -1073,6 +1084,10 @@ async def engine_phase(dev, conv, raw: list[dict]):
         if us > 0:
             device_ops[evt.key[:80]] = us / 1e3
     prof_device_ms = sum(device_ops.values())
+    per_posting = engine_bytes_per_posting(executor)
+    for reading in per_posting:
+        require(reading["bytes_per_posting"] <= DE._ENTRY_BYTES,
+                f"the sorted core took {reading} past the memory guard's _ENTRY_BYTES {DE._ENTRY_BYTES}")
     return {
         "phase": 14, "messages": len(raw), "questions": len(texts),
         "per_question": [
@@ -1088,7 +1103,37 @@ async def engine_phase(dev, conv, raw: list[dict]):
         "device_busy_share_profiler": prof_device_ms / prof_wall_ms,
         "profiler_device_ops_ms": dict(sorted(device_ops.items(), key=lambda kv: -kv[1])[:12]),
         "engine_peak_mem_mib": round(engine_peak / 2**20, 3),
+        "host_scope_selectors": host_selectors,
+        "sorted_core_bytes_per_posting": per_posting,
+        "guard_entry_bytes": DE._ENTRY_BYTES,
+        "guard_budgets": vars(DE._Budgets.reckon(executor.device)),
     }
+
+
+def engine_bytes_per_posting(executor) -> list[dict]:
+    """The sorted core's peak device memory per posting it reads, for the
+    guard's ``_ENTRY_BYTES``: one COO call over the largest list, and over
+    the eight largest as eight segments, every entry live (no gate, no
+    scope), measured over what was allocated before the call."""
+    import torch
+
+    index = executor._postings
+    sizes = np.diff(index._offsets_host)
+    out = []
+    for n_lists in (1, 8):
+        tids = np.argsort(sizes, kind="stable")[-n_lists:]
+        ops = [(int(tid), 1.0, seg, 0, 0, -1, 0) for seg, tid in enumerate(tids)]
+        index.lookup_ops_sparse(ops, n_lists, executor._semref_ktype)  # the cached ktype row, the scope row
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        index.lookup_ops_sparse(ops, n_lists, executor._semref_ktype)
+        torch.cuda.synchronize()
+        postings = int(sizes[tids].sum())
+        peak = torch.cuda.max_memory_allocated() - before
+        out.append({"lists": n_lists, "postings": postings, "peak_bytes": peak,
+                    "bytes_per_posting": peak / postings})
+    return out
 
 
 def main() -> int:

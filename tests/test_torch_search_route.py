@@ -8,7 +8,11 @@ auto, read when the options are made; the host vocabulary runs the host VM;
 (device fallback)". One deliberate departure from the JAX package: an
 exception in the engine propagates and is never answered by the host VM.
 A conversation with a data-parallel ``_device_mesh`` raises naming
-ROADMAP.md Queue 1 item 9. Everything runs on CPU tensors.
+ROADMAP.md Queue 1 item 9. The engine's memory guard decides how queries
+pack into calls, never their route: under budgets of one slot and one
+posting a call, ``make_questions``' 16 questions, action scopes included,
+stay on the engine and answer as at the reckoned budgets. Everything runs
+on CPU tensors.
 """
 
 import asyncio
@@ -33,7 +37,7 @@ from typeagent_tpu_torch.knowpro.search import (
     search_conversation_knowledge_batch,
 )
 
-from test_torch_conv_corpus import make_corpus, port_conversation
+from test_torch_conv_corpus import QUESTION_KINDS, make_corpus, make_questions, port_conversation
 
 GROUP = SearchTermGroup(boolean_op="or", terms=[SearchTerm(Term("word1"))])
 ENTRIES = ("single", "batch", "search")
@@ -192,3 +196,39 @@ def test_engine_runs_on_the_conversations_device(conv):
     executor, _ = asyncio.run(search._get_device_executor(conv))
     assert executor.device == conv.settings.device
     assert executor._postings._offsets.device == conv.settings.device
+
+
+def test_budget_pressure_never_leaves_the_device(monkeypatch):
+    """Budgets of one slot and one posting a call: every plan and action-
+    scope job runs in a device call of its own, each question's route is
+    "device", no scope selector goes to the host, and the answers and
+    stage-3 results equal those at the reckoned budgets."""
+    from typeagent_tpu_torch.knowpro import answers, searchlang
+    from typeagent_tpu_torch.models.canned import CannedChatModel
+
+    raw = make_corpus(7, 300)
+    questions = make_questions(raw, 8)
+
+    async def ask():
+        conv = (await port_conversation(raw))[0]
+        model = CannedChatModel(questions)
+        conv._query_translator = searchlang.create_search_query_translator(model)
+        conv._answer_translator = answers.create_answer_translator(model)
+        out = []
+        for question in questions:
+            debug = searchlang.LanguageSearchDebugContext()
+            answer = await conv.query(question, debug_context=debug)
+            results = [
+                (m.message_ordinal, m.score) for r in debug.search_results for m in r.message_matches
+            ]
+            out.append((answer, conv._last_engine_route, results))
+        return out, conv._device_executor.host_scope_selectors
+
+    reckoned, reckoned_host = asyncio.run(ask())
+    for knob in ("_MAX_DENSE_ENTRIES", "_MAX_SPARSE_ENTRIES", "_MAX_GATHER_ELEMENTS"):
+        monkeypatch.setattr(device_executor, knob, 1)
+    tiny, tiny_host = asyncio.run(ask())
+    assert len(tiny) == len(QUESTION_KINDS)
+    assert [route for _, route, _ in tiny] == ["device"] * len(QUESTION_KINDS)
+    assert reckoned_host == tiny_host == 0
+    assert tiny == reckoned
