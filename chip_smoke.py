@@ -156,6 +156,31 @@ Phases, one JSON line each:
      over the resident conversation; the sorted core's peak bytes per
      posting read, which must lie within the memory guard's
      ``_ENTRY_BYTES``, and the budgets the guard reckons; the card.
+ 15. SQLite storage: phase 12's corpus, extractor and 15 ingest calls into
+     ``create_conversation(<file>, ConversationMessage, settings=...)`` on
+     the card (a temporary directory), the provider closed and the file
+     reopened cold as a new conversation. The related-terms index must
+     hold each of the memory conversation's terms once (the memory index
+     repeats a term once per ingest call that meets it). Phase 12's 64
+     b = 1 lookups (k = 10) and its b = 256 batch on the reopened message
+     index must launch K2 and K3 and match a numpy f32 cosine top-k over
+     the rows read back from the file's BLOBs (ties within 2e-6). The 16
+     questions through ``query()`` on the default route: every route
+     "device" (0 fallbacks), and stage 3 (up to ties within 1e-4) and the
+     answers equal to phase 13's memory conversation asked again with
+     each related term once (the file's terms and rows); the answers as
+     phase 13 asked them are counted, not required. Then
+     ``python -m typeagent_tpu_torch.tools.ingest_vtt`` on
+     ``tests/testdata/mini.vtt`` and ``python -m
+     typeagent_tpu_torch.tools.query --search`` as subprocesses on the
+     card: exit 0, at least one message found, and the same lines as the
+     same search in this process with ``--device cpu``. Printed: ingest
+     rate beside phase 12's, file bytes, the open's seconds (BLOB reads of
+     the message and related-terms indexes, the upload, the bf16 shadow),
+     rows on the card, b = 1 p50/p90 and b = 256 ms, certificate misses
+     and K1 launches, the engine's first sync beside phase 13's, ``query()``
+     p50/p90 and stage-3 ms beside the memory conversation's, peak device
+     memory, the CLIs' seconds and lines, the card.
 
 Each corpus search is checked three ways: the API's hits are the kernel's
 output on the same operands, that output agrees with the plain version
@@ -251,6 +276,9 @@ TOL_TWIN = 1e-5
 TOL_ENGINE = 1e-4
 STREAM_MESSAGES = 10_000
 STREAM_BATCH = 100
+# Phase 15: the CLIs' search words (a speaker of tests/testdata/mini.vtt
+# and a word of its text).
+CLI_WORDS = ("Bob", "music")
 
 
 def emit(obj: dict) -> None:
@@ -333,6 +361,16 @@ def rescore_bound(ids, b: int, d_pad: int) -> tuple[float, str]:
                     PEAK_F32)
 
 
+def lookup_probes(raw: list[dict], rng: np.random.Generator) -> tuple[list[str], list[str]]:
+    """Phase 12's lookups, drawn from ``rng``: CONV_SINGLE b = 1 texts (half
+    message texts, which must find their own message first, half random
+    words) and the CONV_BATCH texts of the b = 256 batch."""
+    probe = [raw[int(i)]["text"] for i in rng.integers(0, len(raw), CONV_SINGLE // 2)]
+    probe += [" ".join(f"word{w}" for w in rng.integers(0, CONV_VOCAB, 12)) for _ in range(CONV_SINGLE // 2)]
+    words = [" ".join(f"word{w}" for w in rng.integers(0, CONV_VOCAB, 10)) for _ in range(CONV_BATCH)]
+    return probe, words
+
+
 async def conversation_phase(dev, n_messages: int = CONV_MESSAGES, batches: int = CONV_BATCHES):
     """Phase 12: a conversation built and searched through the port's entry
     points on the card (create_conversation -> add_messages_with_indexing ->
@@ -365,7 +403,7 @@ async def conversation_phase(dev, n_messages: int = CONV_MESSAGES, batches: int 
 
     torch.cuda.reset_peak_memory_stats()
     raw = make_corpus(SEED, n_messages, vocab=CONV_VOCAB, speakers=CONV_SPEAKERS)
-    rng = np.random.default_rng(SEED + 12)  # the probes
+    rng = np.random.default_rng(SEED + 12)  # the probes, then the related terms
     conv_settings = port_settings(D_MAIN, device=None)  # the card: the default device
     require(conv_settings.device.type == "cuda", f"conversation settings on {conv_settings.device}")
     t0 = time.perf_counter()
@@ -420,8 +458,7 @@ async def conversation_phase(dev, n_messages: int = CONV_MESSAGES, batches: int 
         return counts
 
     min_msg = conv_settings.message_text_index_settings.embedding_index_settings.min_score
-    probe = [raw[int(i)]["text"] for i in rng.integers(0, n_messages, CONV_SINGLE // 2)]
-    probe += [" ".join(f"word{w}" for w in rng.integers(0, CONV_VOCAB, 12)) for _ in range(CONV_SINGLE // 2)]
+    probe, words = lookup_probes(raw, rng)
     out = {"phase": 12, "messages": n_messages, "batches": batches, "d": D_MAIN,
            "semrefs": await conv.semantic_refs.size(), "related_terms_rows": related_rows,
            "message_rows": await mindex.size(), "ingest_s": round(ingest_s, 3),
@@ -464,7 +501,6 @@ async def conversation_phase(dev, n_messages: int = CONV_MESSAGES, batches: int 
     topk.reset_launch_counts()
 
     # (b) one batch of 256 query embeddings through the index's batched lookup.
-    words = [" ".join(f"word{w}" for w in rng.integers(0, CONV_VOCAB, 10)) for _ in range(CONV_BATCH)]
     q_batch = np.stack(await mindex.text_location_index.generate_embeddings(words))
     emb_index = mindex.text_location_index._embedding_index
     batch = emb_index.get_indexes_of_nearest_batch(q_batch, max_matches=10, min_score=0.0)
@@ -726,7 +762,8 @@ def check_answers(answers: list[str], what: str) -> None:
 
 async def query_phase(dev, conv, raw: list[dict]):
     """Phase 13: ``query()`` on phase 12's conversation, its CPU twin and
-    the streaming ingest. Returns the phase's line."""
+    the streaming ingest. Returns the phase's line and the sequential pass
+    (answers, stage-3 results) that phase 15 is set beside."""
     import tempfile
 
     import torch
@@ -961,7 +998,7 @@ async def query_phase(dev, conv, raw: list[dict]):
     seq = np.array(seq_ms)
     seq_total = float(seq.sum())
     device_events_ms = {kind: float(sum(v)) for kind, v in store_ms.items()}
-    return {
+    return seq_run, {
         "phase": 13, "messages": len(raw), "questions": len(texts), "kinds": list(QUESTION_KINDS),
         "first_query_ms": first_ms, "engine_first_sync_ms": first_sync_ms, "interner": interner,
         "routes": seq_run["routes"], "stage3_ms": [round(x, 3) for x in seq_run["stage3_ms"]],
@@ -1108,6 +1145,245 @@ async def engine_phase(dev, conv, raw: list[dict]):
         "guard_entry_bytes": DE._ENTRY_BYTES,
         "guard_budgets": vars(DE._Budgets.reckon(executor.device)),
     }
+
+
+async def sqlite_phase(dev, raw: list[dict], phase13: dict):
+    """Phase 15: phase 12's conversation built into a SQLite file on the
+    card, closed, reopened cold as a new conversation; its message index's
+    lookups (K2 + K3) held to a numpy f32 top-k over the file's own BLOBs,
+    the 16 questions on the device engine held to the host VM on the same
+    file, and the ``ingest_vtt`` and ``query --search`` CLIs run as
+    subprocesses on the card. Returns the phase's line and the launches of
+    its lookups and questions."""
+    import io
+    import sqlite3
+    import tempfile
+
+    import torch
+
+    from typeagent_tpu_torch import create_conversation
+    from typeagent_tpu_torch.knowpro import searchlang
+    from typeagent_tpu_torch.knowpro.universal_message import (
+        ConversationMessage,
+        ConversationMessageMeta,
+    )
+    from typeagent_tpu_torch.ops import topk
+    from typeagent_tpu_torch.storage.sqlite import SqliteStorageProvider
+    from typeagent_tpu_torch.tools import query as query_tool
+    from typeagent_tpu_torch.utils.metrics import METRICS
+    from test_torch_conv_corpus import QUESTION_KINDS, ingest, make_questions, metadata_semrefs, port_settings
+
+    n = len(raw)
+    out = {"phase": 15, "messages": n, "batches": CONV_BATCHES, "d": D_MAIN}
+    launches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "conv.db")
+
+        # (1) Build: phase 12's corpus, extractor and 15 batches, into SQLite.
+        settings = port_settings(D_MAIN, device=None)
+        require(settings.device.type == "cuda", f"SQLite conversation settings on {settings.device}")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        conv, results = await ingest(create_conversation, settings, ConversationMessage,
+                                     ConversationMessageMeta, raw, CONV_BATCHES, path)
+        ingest_s = time.perf_counter() - t
+        require(isinstance(conv.settings.storage_provider, SqliteStorageProvider), "not SQLite storage")
+        added = {key: sum(getattr(r, key) for r in results)
+                 for key in ("messages_added", "chunks_added", "semrefs_added")}
+        require(added == {"messages_added": n, "chunks_added": n,
+                          "semrefs_added": metadata_semrefs(raw) + 3 * n}, f"SQLite ingest: {added}")
+        build_peak = torch.cuda.max_memory_allocated()
+        await conv.settings.storage_provider.close()
+        del conv, results
+        gc.collect()
+        torch.cuda.empty_cache()
+        file_bytes = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp))
+
+        # (2) Reopen cold: a new conversation over the file. The open reads
+        # the BLOBs (spans sqlite.*.load); the rows reach the card at the
+        # stores' first flush, the bf16 shadow at the first exact2 lookup:
+        # both are forced and timed here, apart.
+        load_spans = ("sqlite.message_index.load", "sqlite.related_terms.load")
+        marks = {name: len(METRICS.latencies.get(f"span.{name}", ())) for name in load_spans}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        conv = await create_conversation(path, ConversationMessage, settings=port_settings(D_MAIN, device=None))
+        open_s = time.perf_counter() - t
+        span_s = {name: sum(METRICS.latencies[f"span.{name}"][marks[name]:]) for name in load_spans}
+        mindex = conv.secondary_indexes.message_index
+        fuzzy = conv.secondary_indexes.term_to_related_terms_index.fuzzy_index
+        store = mindex._vectorbase
+        t = time.perf_counter()
+        store._flush()
+        fuzzy._vector_base._flush()
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t
+        t = time.perf_counter()
+        store._shadow()
+        torch.cuda.synchronize()
+        shadow_s = time.perf_counter() - t
+        require(store._count == n and store._buf.device.type == "cuda",
+                f"reopened message index: {store._count} rows on {store._buf.device}")
+        require(await conv.messages.size() == n, "reopened conversation: messages")
+        terms = list(fuzzy._terms_list)
+        require(len(terms) == len(set(terms)) and set(terms) == phase13["related_terms"],
+                "the SQLite related-terms index does not hold each of the memory index's terms once")
+        out.update({
+            "ingest_s": round(ingest_s, 3), "messages_per_s": round(n / ingest_s, 1),
+            "memory_ingest_s": phase13["ingest_s"], "memory_messages_per_s": phase13["messages_per_s"],
+            "file_bytes": file_bytes, "build_peak_mem_gib": round(build_peak / 2**30, 3),
+            "open_s": round(open_s, 3),
+            "open_message_index_read_s": round(span_s["sqlite.message_index.load"], 3),
+            "open_related_terms_read_s": round(span_s["sqlite.related_terms.load"], 3),
+            "upload_s": round(upload_s, 3), "shadow_s": round(shadow_s, 3),
+            "rows_on_card": store._count, "related_terms_rows": len(terms),
+            "memory_related_terms_rows": phase13["related_terms_rows"],
+        })
+
+        # (3) Phase 12's 64 b = 1 lookups (k = 10) and its b = 256 batch on
+        # the reopened index, held to a numpy f32 cosine top-k over the
+        # rows read back from the file's BLOBs.
+        probe, words = lookup_probes(raw, np.random.default_rng(SEED + 12))
+        min_msg = settings.message_text_index_settings.embedding_index_settings.min_score
+        cert_q0 = METRICS.counters.get("vectorstore.cert_queries", 0)
+        cert_m0 = METRICS.counters.get("vectorstore.cert_misses", 0)
+        topk.reset_launch_counts()
+        single, single_ms = [], []
+        for text in probe:
+            t = time.perf_counter()
+            hits = await mindex.lookup_messages(text, max_matches=K_MAIN)
+            single_ms.append((time.perf_counter() - t) * 1e3)
+            single.append([(h.message_ordinal, h.score) for h in hits])
+        counts_b1 = topk.launch_counts()
+        q_batch = np.stack([await mindex.generate_embedding(w) for w in words])
+        topk.reset_launch_counts()
+        batch = store.fuzzy_lookup_embeddings_batch(q_batch, max_hits=K_MAIN, min_score=0.0)
+        counts_b256 = topk.launch_counts()
+        launches += [counts_b1, counts_b256]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            store.fuzzy_lookup_embeddings_batch(q_batch, max_hits=K_MAIN, min_score=0.0)
+        batch_ms = (time.perf_counter() - t) * 100
+        cert_q = METRICS.counters.get("vectorstore.cert_queries", 0) - cert_q0
+        cert_m = METRICS.counters.get("vectorstore.cert_misses", 0) - cert_m0
+        for what, counts in (("b=1", counts_b1), ("b=256", counts_b256)):
+            require(counts["bucket_maxima"] > 0 and counts["rescore"] > 0, f"SQLite {what}: route {counts}")
+        db = sqlite3.connect(path)
+        stored = db.execute("SELECT msg_id, embedding FROM MessageTextIndex ORDER BY index_position").fetchall()
+        db.close()
+        require([m for m, _ in stored] == list(range(n)), "MessageTextIndex rows out of message order")
+        blob_rows = np.stack([np.frombuffer(blob, dtype=np.float32) for _, blob in stored])
+        del stored
+        q_single = np.stack([await mindex.generate_embedding(text) for text in probe])
+        max_err = 0.0
+        for what, queries, got, floor in (("b=1", q_single, single, min_msg),
+                                          ("b=256", q_batch, [[(h.item, h.score) for h in r] for r in batch], 0.0)):
+            scores = np.clip((queries @ blob_rows.T + 1) * 0.5, 0, 1)
+            for r, hits in enumerate(got):
+                max_err = max(max_err, check_top(hits, scores[r], K_MAIN, floor, f"SQLite {what} lookup {r}"))
+        for r in range(CONV_SINGLE // 2):  # a message's own text finds it first
+            require(single[r] and single[r][0][1] >= 1 - 1e-6, f"SQLite b=1 lookup {r}: own message not first")
+        del blob_rows
+        b1 = np.array(single_ms)
+        out.update({
+            "launches": {"b1": counts_b1, "b256": counts_b256},
+            "cert_queries": cert_q, "cert_misses": cert_m,
+            "k1_launches_b1": counts_b1["topk"], "k1_launches_b256": counts_b256["topk"],
+            "b1_ms_p50": float(np.percentile(b1, 50)), "b1_ms_p90": float(np.percentile(b1, 90)),
+            "b256_ms": batch_ms, "max_score_err": max_err,
+        })
+
+        # (4) The 16 questions on the default route (the device engine),
+        # then on the host VM over the same file.
+        questions = make_questions(raw, SEED + 13)
+        texts = list(questions)
+        use_canned(conv, questions)
+        sync_marks = engine_span_marks()
+        topk.reset_launch_counts()
+        t = time.perf_counter()
+        await conv.query(texts[0])
+        first_ms = (time.perf_counter() - t) * 1e3
+        first_sync_ms, syncs = engine_span_ms("engine.sync", sync_marks)
+        require(syncs >= 1, "the first query did not sync the device engine")
+        device = await ask(conv, texts, searchlang)
+        launches.append(topk.launch_counts())
+        fallbacks = [(kind, r) for kind, r in zip(QUESTION_KINDS, device["routes"]) if r != "device"]
+        require(not fallbacks, f"SQLite questions left the device engine: {fallbacks}")
+        check_answers(device["answers"], "SQLite query")
+        # Phase 13's memory conversation asked again with its related-terms
+        # index holding each term once, as the SQLite one does (the file's
+        # terms and rows, in its order): the same stage 3 up to ties within
+        # 1e-4 and the same answers. As phase 13 asked them, with a term
+        # repeated once per ingest call that met it, the k = 50 expansions
+        # differ, so those answers are only counted.
+        memory = phase13["conv"]
+        mem_fuzzy = memory.secondary_indexes.term_to_related_terms_index.fuzzy_index
+        mem_fuzzy.clear()
+        await mem_fuzzy.add_terms_with_embeddings(terms, list(fuzzy._vector_base.host_rows(0, len(terms))))
+        use_canned(memory, questions)
+        once = await ask(memory, texts, searchlang)
+        require(set(once["routes"]) == {"device"}, f"memory conversation routes: {once['routes']}")
+        require(device["answers"] == once["answers"],
+                "SQLite answers differ from the memory conversation's with each related term once")
+        for q, (kind, s_res, m_res) in enumerate(zip(QUESTION_KINDS, device["results"], once["results"])):
+            require(len(s_res) == len(m_res), f"SQLite question {q} ({kind}): {len(s_res)} results vs {len(m_res)}")
+            for (sm, sk), (mm, mk) in zip(s_res, m_res):
+                close_up_to_ties(sm, mm, TOL_ENGINE, f"SQLite question {q} ({kind}) messages")
+                require(sk.keys() == mk.keys(), f"SQLite question {q} ({kind}): knowledge types")
+                for ktype in sk:
+                    close_up_to_ties(sk[ktype], mk[ktype], TOL_ENGINE, f"SQLite question {q} ({kind}) {ktype}")
+        seq = np.array(device["ms"])
+        out.update({
+            "first_query_ms": first_ms, "engine_first_sync_ms": first_sync_ms,
+            "memory_engine_first_sync_ms": phase13["engine_first_sync_ms"],
+            "routes": device["routes"], "fallbacks": 0,
+            "query_ms_p50": float(np.percentile(seq, 50)), "query_ms_p90": float(np.percentile(seq, 90)),
+            "query_ms": [round(x, 3) for x in device["ms"]],
+            "stage3_ms": sum(device["stage3_ms"]), "memory_stage3_ms": sum(once["stage3_ms"]),
+            "memory_query_ms_p50": float(np.percentile(once["ms"], 50)),
+            "memory_query_ms_p90": float(np.percentile(once["ms"], 90)),
+            "equal_to_memory_with_terms_once": True, "tolerance": TOL_ENGINE,
+            "answers_equal_to_phase13": sum(a == b for a, b in zip(device["answers"], phase13["run"]["answers"])),
+            "peak_mem_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3),
+        })
+        await conv.settings.storage_provider.close()
+        del conv, mindex, fuzzy, store
+        gc.collect()
+
+        # (5) The CLIs as subprocesses on the card (their default device),
+        # the search's lines held to the same search in this process on the
+        # CPU over the same file.
+        repo = os.path.dirname(os.path.abspath(__file__))
+        talk = os.path.join(tmp, "talk.db")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (repo, os.environ.get("PYTHONPATH")))))
+        search = ["-d", talk, "--search", *CLI_WORDS, "--embedding-model", "test"]
+        cli = {}
+        for name, args in (("ingest_vtt", [os.path.join(repo, "tests", "testdata", "mini.vtt"), "-d", talk,
+                                           "--embedding-model", "test"]),
+                           ("query", search)):
+            t = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", f"typeagent_tpu_torch.tools.{name}", *args],
+                                  capture_output=True, text=True, cwd=repo, env=env, timeout=300)
+            require(proc.returncode == 0, f"{name} CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+            cli[name] = {"s": round(time.perf_counter() - t, 3), "stdout": proc.stdout.splitlines()}
+        lines = cli["query"]["stdout"]
+        require(any(line.startswith("messages: ") and line != "messages: 0" for line in lines),
+                f"query --search found no message: {lines}")
+        argv, sys.argv = sys.argv, ["query", *search, "--device", "cpu"]
+        buffer = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buffer):
+                await query_tool.amain()
+        finally:
+            sys.argv = argv
+        require(buffer.getvalue().splitlines() == lines, "query --search on the card and on the CPU differ")
+        gc.collect()
+        out["cli"] = {"words": list(CLI_WORDS), "ingest_vtt": cli["ingest_vtt"],
+                      "query_search": cli["query"], "same_lines_as_cpu": True}
+    total = {name: sum(c[name] for c in launches) for name in launches[0]}
+    return out, total
 
 
 def engine_bytes_per_posting(executor) -> list[dict]:
@@ -2519,15 +2795,25 @@ def main() -> int:
     emit(out12)
 
     # 13. query() on that conversation, its CPU twin, streaming ingest.
-    out13 = asyncio.run(query_phase(dev, conv, raw))
+    seq13, out13 = asyncio.run(query_phase(dev, conv, raw))
     out13.update({"nvidia_smi": smi_line(), "ok": True})
     emit(out13)
 
     # 14. the device query engine against the host VM on that conversation.
     out14 = asyncio.run(engine_phase(dev, conv, raw))
-    del conv, raw
+    memory_terms = conv.secondary_indexes.term_to_related_terms_index.fuzzy_index._texts
     out14.update({"nvidia_smi": smi_line(), "ok": True})
     emit(out14)
+
+    # 15. the same conversation in SQLite, reopened cold on the card; the CLIs.
+    phase13 = {"conv": conv, "run": seq13, "engine_first_sync_ms": out13["engine_first_sync_ms"],
+               "ingest_s": out12["ingest_s"], "messages_per_s": out12["messages_per_s"],
+               "related_terms": set(memory_terms), "related_terms_rows": len(memory_terms)}
+    out15, counts15 = asyncio.run(sqlite_phase(dev, raw, phase13))
+    del conv, raw, seq13, phase13, memory_terms
+    add_path_launches(counts15)
+    out15.update({"nvidia_smi": smi_line(), "ok": True})
+    emit(out15)
 
     # --------------------------------------------------------------- summary
     for name in ENTRIES:

@@ -100,10 +100,12 @@ def port_settings(d: int, device: str | None = "cpu") -> ConversationSettings:
     return settings
 
 
-async def ingest(create, settings, message_cls, meta_cls, raw: list[dict], batches: int):
-    """``create_conversation(None, message_cls, settings=settings)``, then
+async def ingest(create, settings, message_cls, meta_cls, raw: list[dict], batches: int,
+                 dbname: str | None = None):
+    """``create_conversation(dbname, message_cls, settings=settings)`` (memory
+    storage without a ``dbname``, SQLite with one), then
     ``add_messages_with_indexing`` over ``batches`` equal slices."""
-    conv = await create(None, message_cls, settings=settings)
+    conv = await create(dbname, message_cls, settings=settings)
     results = []
     for part in np.array_split(np.arange(len(raw)), batches):
         chunk = [raw[i] for i in part]
@@ -111,10 +113,11 @@ async def ingest(create, settings, message_cls, meta_cls, raw: list[dict], batch
     return conv, results
 
 
-async def port_conversation(raw: list[dict], batches: int = 1, d: int = 16, device: str | None = "cpu"):
+async def port_conversation(raw: list[dict], batches: int = 1, d: int = 16, device: str | None = "cpu",
+                            dbname: str | None = None):
     return await ingest(
         create_conversation, port_settings(d, device), ConversationMessage,
-        ConversationMessageMeta, raw, batches,
+        ConversationMessageMeta, raw, batches, dbname,
     )
 
 
@@ -290,9 +293,21 @@ async def test_query_and_streaming_name_their_item():
         await conv.add_messages_streaming(stream())
 
 
-async def test_dbname_names_item_12():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        await create_conversation("chat.db", ConversationMessage, settings=port_settings(16))
+async def test_dbname_names_item_12(tmp_path):
+    """A ``dbname`` gives SQLite storage (ROADMAP.md Queue 1 item 12, ported);
+    without a message type it raises, as in JAX."""
+    from typeagent_tpu_torch.storage.sqlite import SqliteStorageProvider
+    from typeagent_tpu_torch.storage.utils import create_storage_provider
+
+    db = str(tmp_path / "chat.db")
+    conv = await create_conversation(db, ConversationMessage, settings=port_settings(16))
+    assert isinstance(conv.settings.storage_provider, SqliteStorageProvider)
+    await conv.settings.storage_provider.close()
+    settings = port_settings(16)
+    with pytest.raises(ValueError, match="Message type"):
+        await create_storage_provider(
+            settings.message_text_index_settings, settings.related_term_index_settings, db
+        )
 
 
 async def test_default_extractor_names_item_14():

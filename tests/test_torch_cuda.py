@@ -1005,3 +1005,39 @@ def test_query_engine_on_cuda_matches_cpu(dev):
             for k in x:
                 assert [o for o, _ in x[k]] == [o for o, _ in y[k]]
                 assert max((abs(p - q) for (_, p), (_, q) in zip(x[k], y[k])), default=0.0) <= 1e-5
+
+
+def test_sqlite_conversation_reopened_on_cuda_finds_its_messages(dev, monkeypatch, tmp_path):
+    """A 2,000-message SQLite conversation built on the card, closed and
+    reopened on the card (its message index loaded from the file's BLOBs),
+    with EXACT2_MIN_ROWS lowered so the reopened index takes the hybrid
+    route (K2 + K3): each probe message's own text finds that message
+    first, at a cosine within 2e-6 of 1."""
+    import asyncio
+
+    from typeagent_tpu_torch import create_conversation, vectorstore
+    from typeagent_tpu_torch.knowpro.universal_message import ConversationMessage
+
+    from test_torch_conv_corpus import make_corpus, port_conversation, port_settings
+
+    monkeypatch.setattr(vectorstore, "EXACT2_MIN_ROWS", 1024)
+    raw = make_corpus(9, 2000, vocab=500, speakers=20)
+    db = str(tmp_path / "conv.db")
+    probes = (0, 1, 500, 1234, 1999)
+
+    async def build_reopen_and_ask():
+        conv, _ = await port_conversation(raw, 2, d=384, device="cuda", dbname=db)
+        await conv.settings.storage_provider.close()
+        again = await create_conversation(db, ConversationMessage, settings=port_settings(384, "cuda"))
+        index = again.secondary_indexes.message_index
+        assert len(index._vectorbase) == 2000
+        topk.reset_launch_counts()
+        hits = [await index.lookup_messages(raw[i]["text"], max_matches=5) for i in probes]
+        counts = topk.launch_counts()
+        await again.settings.storage_provider.close()
+        return hits, counts
+
+    hits, counts = asyncio.run(build_reopen_and_ask())
+    assert counts["bucket_maxima"] >= len(probes) and counts["rescore"] >= len(probes), counts
+    for i, got in zip(probes, hits):
+        assert got[0].message_ordinal == i and abs(got[0].score - 1.0) <= 2e-6

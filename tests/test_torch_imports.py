@@ -282,3 +282,93 @@ def test_package_has_the_query_modules():
         "typeagent_tpu_torch.knowpro.engine_batcher",
     ):
         assert name in MODULES
+
+
+def test_package_has_the_sqlite_domain_and_cli_modules():
+    for name in (
+        "typeagent_tpu_torch.storage.sqlite.schema",
+        "typeagent_tpu_torch.storage.sqlite.collections",
+        "typeagent_tpu_torch.storage.sqlite.indexes",
+        "typeagent_tpu_torch.storage.sqlite.messageindex",
+        "typeagent_tpu_torch.storage.sqlite.reltermsindex",
+        "typeagent_tpu_torch.storage.sqlite.provider",
+        "typeagent_tpu_torch.utils.misc",
+        "typeagent_tpu_torch.transcripts.vtt",
+        "typeagent_tpu_torch.transcripts.transcript",
+        "typeagent_tpu_torch.transcripts.transcript_ingest",
+        "typeagent_tpu_torch.podcasts.podcast",
+        "typeagent_tpu_torch.podcasts.podcast_ingest",
+        "typeagent_tpu_torch.tools.ingest_vtt",
+        "typeagent_tpu_torch.tools.ingest_podcast",
+        "typeagent_tpu_torch.tools.query",
+        "typeagent_tpu_torch.tools.reextract",
+        "typeagent_tpu_torch.tools.doctor",
+    ):
+        assert name in MODULES
+
+
+_GUARD = (
+    "import builtins\n"
+    "real = builtins.__import__\n"
+    "def guard(name, *a, **k):\n"
+    "    if name.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'pydantic', 'httpx', 'typeagent_tpu'):\n"
+    "        raise ImportError(f'forbidden import {name}')\n"
+    "    return real(name, *a, **k)\n"
+    "builtins.__import__ = guard\n"
+    "import sys\n"
+    "for m in [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'pydantic', 'httpx')]:\n"
+    "    del sys.modules[m]\n"
+)
+
+
+def _cli(args: list[str], tmp_path) -> subprocess.CompletedProcess:
+    """``python -m typeagent_tpu_torch.tools.<args>`` in a process where
+    importing jax, ml_dtypes, pydantic, httpx or ``typeagent_tpu`` fails."""
+    code = _GUARD + (
+        "import runpy\n"
+        f"sys.argv = {args!r}\n"
+        f"runpy.run_module('typeagent_tpu_torch.tools.{args[0]}', run_name='__main__')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        cwd=str(tmp_path), timeout=120,
+    )
+
+
+def test_clis_run_without_jax_pydantic_httpx(tmp_path):
+    """``ingest_vtt`` into SQLite, then ``query --search``, ``doctor`` and
+    ``ingest_podcast``, each as ``python -m`` on the CPU, with JAX,
+    pydantic, httpx and ``typeagent_tpu`` unimportable."""
+    data = PKG.parent / "tests" / "testdata"
+    db = str(tmp_path / "talk.db")
+    common = ["--embedding-model", "test", "--device", "cpu"]
+    proc = _cli(["ingest_vtt", str(data / "mini.vtt"), "-d", db, *common], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "3 messages" in proc.stdout
+    proc = _cli(["query", "-d", db, "--search", "baroque", "music", *common], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "messages:      3" in proc.stdout
+    assert any(line.startswith("messages: ") and line != "messages: 0" for line in proc.stdout.splitlines())
+    proc = _cli(["doctor", "-d", db, *common], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    proc = _cli(["ingest_podcast", str(data / "mini_podcast.txt"), "-d", str(tmp_path / "pod.db"),
+                 "--no-extract-knowledge", *common], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "Ingested" in proc.stdout
+
+
+def test_clis_without_a_card_exit_with_the_settings_error(tmp_path):
+    """Without ``--device cpu`` the CLIs build their settings on the card,
+    and without one they exit non-zero with the settings' error."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    vtt = str(PKG.parent / "tests" / "testdata" / "mini.vtt")
+    for args in (["ingest_vtt", vtt, "-d", str(tmp_path / "a.db"), "--embedding-model", "test"],
+                 ["query", "-d", str(tmp_path / "a.db"), "--search", "x", "--embedding-model", "test"]):
+        proc = _cli(args, tmp_path)
+        assert proc.returncode != 0
+        assert "no CUDA device is available" in proc.stderr
+        assert "Traceback" in proc.stderr and not proc.stdout.strip()

@@ -48,7 +48,7 @@ import torch
 
 from ..ops import postings as P
 from ..ops.postings import OP_BOOST, OP_EXACT, OP_RELATED, DevicePostingsIndex
-from ..storage.utils import prepare_term
+from ..storage.sqlite.indexes import prepare_term
 from ..utils.trace import span
 from .collections import TextRangesInScope
 from .common import is_search_term_wildcard

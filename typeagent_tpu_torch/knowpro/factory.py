@@ -3,7 +3,7 @@
 The port of ``typeagent_tpu/knowpro/factory.py``. With no settings given
 it builds ``ConversationSettings()``, which needs an embedding model until
 the HTTP adapters are ported (ROADMAP.md Queue 1 item 14), so callers pass
-settings; a ``dbname`` raises until SQLite storage is ported (item 12).
+settings.
 """
 
 from __future__ import annotations

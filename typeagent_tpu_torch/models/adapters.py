@@ -27,7 +27,13 @@ from .result import Failure, Result, Success
 from .retry import AsyncRetrier
 from .structured import IChatModel, PromptSection
 
-__all__ = ["FakeChatModel", "FakeEmbedder", "create_chat_model", "create_test_embedding_model"]
+__all__ = [
+    "FakeChatModel",
+    "FakeEmbedder",
+    "create_chat_model",
+    "create_embedding_model",
+    "create_test_embedding_model",
+]
 
 
 def _fake_embedding(text: str, size: int) -> np.ndarray:
@@ -65,6 +71,25 @@ class FakeEmbedder:
 def create_test_embedding_model(embedding_size: int = 3) -> CachingEmbeddingModel:
     """Deterministic offline embedding model — no keys, no network."""
     return CachingEmbeddingModel(FakeEmbedder(embedding_size))
+
+
+def create_embedding_model(
+    model_spec: str | None = None,
+    retrier: AsyncRetrier | None = None,
+) -> CachingEmbeddingModel:
+    """The embedding model of a ``provider:model`` spec: ``test`` or
+    ``test:<dim>`` (the offline deterministic embedder, 3 wide unless a
+    width is given) is built here; every HTTP provider, and the default
+    spec, raises."""
+    provider, _, model_name = (model_spec or "").partition(":")
+    if model_spec is not None and provider == "test":
+        return create_test_embedding_model(int(model_name) if model_name.isdigit() else 3)
+    raise NotImplementedError(
+        "the HTTP embedding adapters are not ported yet (ROADMAP.md Queue 1 "
+        f"item 14), so there is no embedding model for {model_spec or 'the default spec'!r}; "
+        "use the 'test' or 'test:<dim>' spec or pass a model "
+        "(e.g. models.adapters.create_test_embedding_model())"
+    )
 
 
 class FakeChatModel:
