@@ -1,1 +1,1 @@
-"""Storage backends of the port: in-memory (SQLite is ROADMAP Queue 1 item 12)."""
+"""Storage backends of the port: in-memory and SQLite."""
