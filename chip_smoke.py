@@ -181,6 +181,48 @@ Phases, one JSON line each:
      and K1 launches, the engine's first sync beside phase 13's, ``query()``
      p50/p90 and stage-3 ms beside the memory conversation's, peak device
      memory, the CLIs' seconds and lines, the card.
+ 16. The front doors, with no model flag anywhere: an OpenAI-compatible
+     fake endpoint on 127.0.0.1 (``tests/test_torch_fake_endpoint.py``, a
+     stdlib ``ThreadingHTTPServer`` in a process of its own; 1,536-wide
+     embeddings from a hash of each input, the default spec's width;
+     knowledge extraction answered with one entity and two topics from
+     the text, stage 1 and stage 4 with ``models/canned.py``'s logic;
+     429 to every 97th request and 503 to every 89th, once each) behind
+     ``OPENAI_API_KEY`` and ``OPENAI_BASE_URL``, so the default HTTP
+     models serve everything. A mailbox made from the seed (60
+     correspondents with display names, 1-4 recipients with Cc, subjects
+     of 400 phrases, bodies of 30-300 words of phase 12's vocabulary, 30%
+     replies quoting an earlier email, 5% forwards) written with
+     ``mailbox.mbox``, split by ``python -m
+     typeagent_tpu_torch.tools.mail.dump_mbox`` and ingested into
+     ``mail.db`` by ``python -m typeagent_tpu_torch.tools.ingest_email``,
+     and two podcast archives (2,000 turns each, cut from 10,000; 30
+     speakers, turns of 8-40 words) by ``python -m
+     typeagent_tpu_torch.tools.ingest_podcast``: subprocesses on the card,
+     extraction through the fake, the three ingests started together.
+     Once the archives are in, ``python -m typeagent_tpu_torch.mcp.server
+     -d pod_a.db --corpus a=pod_a.db --corpus b=pod_b.db`` on the card is
+     driven over stdio beside the mailbox's ingest (``initialize``,
+     ``tools/list``, 8 ``query_conversation`` and 8 ``query_corpus``
+     calls, its sampling requests answered with the canned logic). After
+     the mailbox's ingest, a ``ConversationCorpus``
+     over the two files in this process answers 64 searches globally (K1)
+     and 64 scoped to each archive (K4), each held to numpy's f32 top-k
+     over the files' BLOBs (ties within 2e-6). Then ``mail.db`` reopened
+     as ``EmailMemory`` with ``ConversationSettings()`` on the card: 64
+     lookups (K1) held to numpy over its BLOBs, and 12 questions (senders,
+     recipients, subjects, "sent" actions, a week, two expressions, one
+     that matches nothing) through ``query()`` over the HTTP chat model;
+     the same file opened on the CPU gives the same answers. Every 429 and
+     503 must have been retried. Printed: each CLI's seconds and
+     messages/s, the requests served and the errors sent and retried, each
+     MCP call's ms, corpus search ms, lookup ms, the reopen's seconds,
+     ``query()`` p50/p90 and its stage spans, launches by kernel, peak
+     device memory, the card. ``python3 chip_smoke.py --front-doors
+     [--turns N]`` builds the kernels and runs this phase alone (with
+     ``--turns 10000``, each archive a season of 10,000 turns).
+
+Each phase's line carries ``t_s``, the seconds since the script started.
 
 Each corpus search is checked three ways: the API's hits are the kernel's
 output on the same operands, that output agrees with the plain version
@@ -279,9 +321,28 @@ STREAM_BATCH = 100
 # Phase 15: the CLIs' search words (a speaker of tests/testdata/mini.vtt
 # and a word of its text).
 CLI_WORDS = ("Bob", "music")
+# Phase 16: the front doors. A mailbox of about a year of one person's work
+# mail and two podcast archives of a season each, through the HTTP models
+# of an OpenAI-compatible fake endpoint at the default spec's width.
+MAIL_EMAILS = 10_000
+MAIL_CORRESPONDENTS = 60
+MAIL_PHRASES = 400
+POD_TURNS = 2_000  # cut from 10,000 a season to keep the smoke inside its limit
+POD_SPEAKERS = 30
+INGEST_BATCH = 100  # messages per commit in the ingest CLIs
+FAKE_DIM = 1536  # openai:text-embedding-ada-002, DEFAULT_EMBEDDING_SPEC
+FAKE_ERRORS = (97, 89)  # 429 to every 97th request, 503 to every 89th
+MCP_CALLS = 8  # each of query_conversation and query_corpus
+CORPUS_QUERIES = 64
+
+
+T_START = time.perf_counter()
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(obj: dict) -> None:
+    if "phase" in obj:  # a phase's line: the seconds since the start
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1386,6 +1447,455 @@ async def sqlite_phase(dev, raw: list[dict], phase13: dict):
     return out, total
 
 
+def podcast_archive(seed: int, n_turns: int) -> list[dict]:
+    """``n_turns`` seed-made podcast turns: a speaker of POD_SPEAKERS
+    (``speaker<i>``), 8-40 words of phase 12's vocabulary, every other
+    speaker listening (as the podcast parser assigns listeners)."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(8, 41, n_turns)
+    word_ids = rng.integers(0, CONV_VOCAB, int(lengths.sum()))
+    speakers = rng.integers(0, POD_SPEAKERS, n_turns)
+    ends = np.cumsum(lengths)
+    return [{"text": " ".join(f"word{w}" for w in word_ids[ends[i] - lengths[i]: ends[i]]),
+             "speaker": f"speaker{speakers[i]}",
+             "recipients": [f"speaker{j}" for j in range(POD_SPEAKERS) if j != speakers[i]]}
+            for i in range(n_turns)]
+
+
+def blob_rows(path: str) -> np.ndarray:
+    """A SQLite conversation's message-index rows, read from its BLOBs in
+    index order."""
+    import sqlite3
+
+    db = sqlite3.connect(path)
+    stored = db.execute("SELECT embedding FROM MessageTextIndex ORDER BY index_position").fetchall()
+    db.close()
+    return np.stack([np.frombuffer(blob, dtype=np.float32) for (blob,) in stored])
+
+
+def message_count(path: str) -> int:
+    import sqlite3
+
+    db = sqlite3.connect(path)
+    (n,) = db.execute("SELECT COUNT(*) FROM Messages").fetchone()
+    db.close()
+    return n
+
+
+def unit_scores(queries: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """numpy's f32 (cos + 1) / 2 scores of unit-normalized queries and rows."""
+    q = queries / np.linalg.norm(queries, axis=1, keepdims=True)
+    r = rows / np.linalg.norm(rows, axis=1, keepdims=True)
+    return np.clip((q.astype(np.float32) @ r.astype(np.float32).T + 1) * 0.5, 0, 1)
+
+
+async def run_cli(args: list[str], log: str, env: dict, timeout: float = 900) -> dict:
+    """``python -m <args>`` from the repo root, its output to ``log``: its
+    exit code, seconds, last line and last 20 lines. The process is
+    stopped if the wait ends any other way."""
+    t = time.perf_counter()
+    with open(log, "w") as f:
+        proc = await asyncio.create_subprocess_exec(sys.executable, "-m", *args, stdout=f, stderr=subprocess.STDOUT,
+                                                    cwd=REPO, env=env)
+        try:
+            rc = await asyncio.wait_for(proc.wait(), timeout)
+        finally:
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+    s = time.perf_counter() - t
+    with open(log) as f:
+        lines = f.read().splitlines()
+    return {"rc": rc, "s": round(s, 3), "last_line": lines[-1] if lines else "", "tail": lines[-20:]}
+
+
+def cli_ran(what: str, run: dict) -> dict:
+    """A :func:`run_cli` result that exited 0 (or the phase fails), as the
+    phase's line keeps it."""
+    require(run["rc"] == 0, f"{what}: exit {run['rc']}: {run['tail']}")
+    return {"s": run["s"], "last_line": run["last_line"]}
+
+
+@contextlib.contextmanager
+def environ(**values: str | None):
+    """This process's environment with ``values`` set (None: unset), put
+    back on exit."""
+    saved = {name: os.environ.get(name) for name in values}
+    try:
+        for name, value in values.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        yield
+    finally:
+        for name, value in saved.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+
+
+async def front_doors_phase(dev, n_mail: int = MAIL_EMAILS, n_turns: int = POD_TURNS):
+    """Phase 16: the front doors. The seed-made mailbox and two podcast
+    archives; the OpenAI-compatible fake endpoint in a process of its own;
+    ``dump_mbox``; ``ingest_email`` and the two ``ingest_podcast`` runs
+    started together on the card; once the archives are in, the MCP server
+    driven over stdio beside the mailbox's ingest; then a
+    ``ConversationCorpus`` over the archives searched globally (K1) and
+    scoped (K4), held to numpy over the files' BLOBs; the reopened
+    mailbox's lookups (K1) held to numpy and its 12 questions through
+    ``query()`` on the card and on the CPU alike. Returns the phase's line
+    and the launches of its paths."""
+    import mailbox
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    if os.path.join(REPO, "tests") not in sys.path:  # the seed-made corpora's module (no JAX)
+        sys.path.insert(0, os.path.join(REPO, "tests"))
+    from test_torch_conv_corpus import email_text, mailbox_questions, make_mailbox, make_questions
+
+    on_card = dev.type == "cuda"
+    out = {"phase": 16, "emails": n_mail, "archives": 2, "turns_per_archive": n_turns, "d": FAKE_DIM,
+           "errors_every": {"429": FAKE_ERRORS[0], "503": FAKE_ERRORS[1]}}
+    launches = []
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="front_doors_") as tmp:
+
+        def path(*parts: str) -> str:
+            return os.path.join(tmp, *parts)
+
+        # (0) The data, made from the seed: the mailbox as an mbox, the
+        # archives as transcripts, every question's stage-1 JSON.
+        t = time.perf_counter()
+        mail = make_mailbox(SEED + 16, n_mail, vocab=CONV_VOCAB, correspondents=MAIL_CORRESPONDENTS,
+                            phrases=MAIL_PHRASES)
+        box = mailbox.mbox(path("mail.mbox"))
+        box.lock()
+        for m in mail:
+            box.add(email_text(m))
+        box.flush()
+        box.unlock()
+        archives = {name: podcast_archive(SEED + 160 + i, n_turns) for i, name in enumerate(("a", "b"))}
+        for name, turns in archives.items():
+            with open(path(f"pod_{name}.txt"), "w") as f:
+                f.writelines(f"{m['speaker'].upper()}: {m['text']}\n" for m in turns)
+        mail_questions = mailbox_questions(mail, SEED + 17)
+        pod_questions = make_questions(archives["a"], SEED + 18)
+        with open(path("stage1.json"), "w") as f:
+            json.dump(mail_questions | pod_questions, f)
+        out["data_s"] = round(time.perf_counter() - t, 3)
+        del mail
+
+        # The fake endpoint, in a process of its own (its serving threads
+        # take no time from this process's clocks).
+        fake = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tests", "test_torch_fake_endpoint.py"), "--stage1",
+             path("stage1.json"), "--dim", str(FAKE_DIM), "--errors", ",".join(map(str, FAKE_ERRORS))],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=tmp,
+            env=dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (REPO, os.environ.get("PYTHONPATH"))))))
+        try:
+            url = fake.stdout.readline().strip()
+            require(url.startswith("http://127.0.0.1:"), f"the fake endpoint did not start: {url!r}")
+            # The default models of this process and of the CLIs: the fake.
+            with environ(OPENAI_API_KEY="sk-smoke", OPENAI_BASE_URL=url, OPENAI_MODEL=None,
+                         OPENAI_EMBEDDING_MODEL=None, AZURE_OPENAI_API_KEY=None, AZURE_OPENAI_ENDPOINT=None):
+                env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, (REPO, os.environ.get("PYTHONPATH")))))
+                await front_doors(out, launches, dev, env, path, archives, mail_questions, pod_questions)
+            # Every error the fake sent was retried, and answered.
+            with urllib.request.urlopen(url.removesuffix("/v1") + "/stats", timeout=30) as resp:
+                fake_stats = json.loads(resp.read())
+            require(fake_stats["unresolved"] == 0
+                    and fake_stats["retried"] == fake_stats["sent_429"] + fake_stats["sent_503"],
+                    f"fake endpoint: errors not retried: {fake_stats}")
+            require(fake_stats["sent_429"] > 0 and fake_stats["sent_503"] > 0, f"fake endpoint: {fake_stats}")
+            out["http"] = fake_stats
+        finally:
+            fake.stdin.close()  # the fake stops at its input's end
+            try:
+                fake.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                fake.kill()
+                fake.wait()
+    total = {name: sum(c[name] for c in launches) for name in launches[0]}
+    out["launches"] = {k: v for k, v in total.items() if v}
+    if on_card:
+        out["peak_mem_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    return out, total
+
+
+async def mcp_calls(pod_db: dict, env: dict, cli_device: list, respond, texts: list[str]) -> dict:
+    """``python -m typeagent_tpu_torch.mcp.server`` on the archives, driven
+    over stdio: ``initialize``, ``tools/list``, then MCP_CALLS
+    ``query_conversation`` and MCP_CALLS ``query_corpus`` calls of
+    ``texts``, its sampling requests answered by ``respond``. Each call's
+    ms on this side of the pipe."""
+    from test_torch_fake_endpoint import McpClient
+
+    server = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "typeagent_tpu_torch.mcp.server", "-d", pod_db["a"],
+        "--corpus", f"a={pod_db['a']}", "--corpus", f"b={pod_db['b']}", *cli_device,
+        stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE, cwd=REPO, env=env)
+    client = McpClient(server, respond)
+    mcp = {"calls": []}
+    try:
+        t = time.perf_counter()
+        init = await client.request("initialize", {"protocolVersion": "2024-11-05", "capabilities": {},
+                                                   "clientInfo": {"name": "chip_smoke"}})
+        mcp["initialize_ms"] = (time.perf_counter() - t) * 1e3
+        require(init["result"]["serverInfo"]["name"] == "typeagent-tpu", f"MCP initialize: {init}")
+        tools = await client.request("tools/list", {})
+        names = [tool["name"] for tool in tools["result"]["tools"]]
+        require(names == ["query_corpus", "query_conversation"], f"MCP tools: {names}")
+        for tool, questions in (("query_conversation", texts[:MCP_CALLS]),
+                                ("query_corpus", texts[MCP_CALLS: 2 * MCP_CALLS])):
+            for question in questions:
+                t = time.perf_counter()
+                reply = await client.request("tools/call", {"name": tool, "arguments": {"question": question}})
+                ms = (time.perf_counter() - t) * 1e3
+                result = reply.get("result", {})
+                text = result.get("content", [{}])[0].get("text", "")
+                require(result.get("isError") is False and text and "Search failed" not in text,
+                        f"MCP {tool} {question!r}: {reply}")
+                if tool == "query_corpus":
+                    require("[a]" in text and "[b]" in text, f"MCP query_corpus lacks a conversation: {text!r}")
+                mcp["calls"].append({"tool": tool, "ms": round(ms, 3), "answered": not text.startswith("No answer")})
+        mcp["sampling_requests"] = len(client.sampling)
+    finally:
+        server.stdin.close()
+        try:
+            rc = await asyncio.wait_for(server.wait(), 60)
+        except TimeoutError:  # a call left awaiting its sampling answer
+            server.kill()
+            await server.wait()
+            raise
+    require(rc == 0, f"MCP server exited {rc}")
+    for tool in ("query_conversation", "query_corpus"):
+        ms = np.array([c["ms"] for c in mcp["calls"] if c["tool"] == tool])
+        mcp[f"{tool}_ms_first"] = float(ms[0])
+        mcp[f"{tool}_ms_p50_rest"] = float(np.percentile(ms[1:], 50))
+    return mcp
+
+
+async def front_doors(out: dict, launches: list, dev, env: dict, path, archives: dict, mail_questions: dict,
+                      pod_questions: dict):
+    """Phase 16 from ``dump_mbox`` on, with the fake serving this process
+    and ``env``: fills ``out`` and ``launches``."""
+    import torch
+
+    from typeagent_tpu_torch.emails import EmailMemory, EmailMessage
+    from typeagent_tpu_torch.knowpro.convsettings import ConversationSettings
+    from typeagent_tpu_torch.ops import topk
+    from typeagent_tpu_torch.parallel import ConversationCorpus
+    from typeagent_tpu_torch.podcasts.podcast import Podcast, PodcastMessage
+    from typeagent_tpu_torch.storage.utils import create_storage_provider
+    from test_torch_conv_corpus import MAILBOX_KINDS
+    from test_torch_fake_endpoint import canned_responder, hash_embedding
+
+    on_card = dev.type == "cuda"
+    # The CLIs and ConversationSettings default to the card; elsewhere (a
+    # CPU rehearsal of this phase) the CPU is named.
+    cli_device = [] if on_card else ["--device", "cpu"]
+    settings_device = {} if on_card else {"device": "cpu"}
+    n_mail, n_turns = out["emails"], out["turns_per_archive"]
+    cli = out["cli"] = {}
+
+    # (1) mbox -> .eml files; then the mailbox's ingest and the archives'
+    # at once, extraction through the fake: every message in its file.
+    cli["dump_mbox"] = cli_ran("dump_mbox", await run_cli(
+        ["typeagent_tpu_torch.tools.mail.dump_mbox", path("mail.mbox"), path("eml")], path("dump_mbox.log"), env))
+    require(len(os.listdir(path("eml"))) == n_mail, "dump_mbox: not one .eml file per email")
+    mail_db = path("mail.db")
+    pod_db = {name: path(f"pod_{name}.db") for name in archives}
+
+    def ingest(key: str, args: list[str], db: str):
+        return run_cli([*args, "-d", db, "--batch-size", str(INGEST_BATCH), *cli_device], path(f"{key}.log"), env)
+
+    def ingested(key: str, run: dict, db: str, want: int) -> None:
+        cli[key] = cli_ran(key, run)
+        n = message_count(db)
+        require(n == want, f"{key}: {n} messages of {want}")
+        cli[key]["messages_per_s"] = round(n / cli[key]["s"], 1)
+
+    mail_ingest = asyncio.create_task(ingest("ingest_email", ["typeagent_tpu_torch.tools.ingest_email", path("eml")],
+                                             mail_db))
+    try:
+        runs = await asyncio.gather(*(ingest(f"ingest_podcast_{name}", ["typeagent_tpu_torch.tools.ingest_podcast",
+                                                                        path(f"pod_{name}.txt")], pod_db[name])
+                                      for name in archives))
+        for name, run in zip(archives, runs):
+            ingested(f"ingest_podcast_{name}", run, pod_db[name], n_turns)
+        # (2) The MCP server on the archives, beside the mailbox's ingest.
+        out["mcp"] = await mcp_calls(pod_db, env, cli_device, canned_responder(mail_questions | pod_questions),
+                                     list(pod_questions))
+        out["mcp"]["beside_ingest_email"] = not mail_ingest.done()
+        ingested("ingest_email", await mail_ingest, mail_db, n_mail)
+    finally:
+        if not mail_ingest.done():  # the phase failed: stop the ingest
+            mail_ingest.cancel()
+            await asyncio.wait([mail_ingest])
+
+    # (3) A ConversationCorpus over the two archives in this process:
+    # 64 searches global (K1) and 64 scoped to each archive (K4), each
+    # held to numpy's f32 top-k over the files' BLOBs.
+    t = time.perf_counter()
+    corpus = ConversationCorpus(dim=FAKE_DIM, **settings_device)
+    convs = {}
+    for name in archives:
+        settings = ConversationSettings(**settings_device)
+        settings.storage_provider = await create_storage_provider(
+            settings.message_text_index_settings, settings.related_term_index_settings, pod_db[name],
+            PodcastMessage)
+        convs[name] = await Podcast.create(settings, name=name)
+        await corpus.add_conversation(name, convs[name])
+    corpus_open_s = time.perf_counter() - t
+    rows = {name: blob_rows(pod_db[name]) for name in archives}
+    require(all(r.shape == (n_turns, FAKE_DIM) for r in rows.values()), "archive BLOB rows")
+    rng = np.random.default_rng(SEED + 19)
+    probe = [archives["a"][i]["text"] for i in rng.integers(0, n_turns, CORPUS_QUERIES // 4)]
+    probe += [archives["b"][i]["text"] for i in rng.integers(0, n_turns, CORPUS_QUERIES // 4)]
+    probe += [" ".join(f"word{w}" for w in rng.integers(0, CONV_VOCAB, 6)) for _ in range(CORPUS_QUERIES // 2)]
+    queries = np.stack([hash_embedding(text, FAKE_DIM) for text in probe])
+    row_of, base = {}, 0
+    for name in archives:
+        for r, loc in enumerate(corpus._locations[name]):
+            row_of[(name, loc.message_ordinal, loc.chunk_ordinal)] = base + r
+        base += len(corpus._locations[name])
+    all_rows = np.concatenate([rows[name] for name in archives])
+    all_scores = unit_scores(queries, all_rows)
+    search, max_err = {}, 0.0
+    for scope in (None, ["a"], ["b"]):
+        key = "global" if scope is None else f"scoped_{scope[0]}"
+        corpus.search_embedding(queries[0], k=K_MAIN, conversations=scope)  # warm
+        if on_card:
+            torch.cuda.synchronize()
+        topk.reset_launch_counts()
+        hits, ms = [], []
+        for q in queries:
+            t = time.perf_counter()
+            hits.append(corpus.search_embedding(q, k=K_MAIN, conversations=scope))
+            ms.append((time.perf_counter() - t) * 1e3)
+        counts = topk.launch_counts()
+        launches.append(counts)
+        scores = all_scores
+        if scope is not None:  # rows outside the scope cannot be found
+            lo = 0 if scope[0] == "a" else n_turns
+            keep = np.zeros(all_rows.shape[0], dtype=bool)
+            keep[lo: lo + n_turns] = True
+            scores = np.where(keep[None, :], all_scores, -1.0)
+        for r, got in enumerate(hits):
+            require(all(h.conversation in (scope or archives) for h in got), f"corpus {key}: out of scope")
+            pairs = [(row_of[(h.conversation, h.message_ordinal, h.chunk_ordinal)], h.score) for h in got]
+            max_err = max(max_err, check_top(pairs, scores[r], K_MAIN, 0.0, f"corpus {key} query {r}"))
+        for r in range(CORPUS_QUERIES // 2):  # a turn's own text finds it first
+            own = "a" if r < CORPUS_QUERIES // 4 else "b"
+            if scope is None or scope == [own]:
+                require(hits[r] and hits[r][0].score >= 1 - 1e-6, f"corpus {key} query {r}: own turn not first")
+        search[key] = {"ms_p50": float(np.percentile(ms, 50)), "ms_p90": float(np.percentile(ms, 90)),
+                       "launches": {k: v for k, v in counts.items() if v}}
+    if on_card:  # (the CPU runs the kernels' plain versions, uncounted)
+        require(search["global"]["launches"].get("topk", 0) > 0, f"corpus global: no K1 {search['global']}")
+        for key in ("scoped_a", "scoped_b"):
+            require(search[key]["launches"].get("topk_iv", 0) > 0, f"corpus {key}: no K4 {search[key]}")
+    out["corpus"] = {"open_s": round(corpus_open_s, 3), "rows": int(all_rows.shape[0]),
+                     "queries": CORPUS_QUERIES, "k": K_MAIN, "max_score_err": max_err, **search}
+    for conv in convs.values():
+        await conv.settings.storage_provider.close()
+    del corpus, convs, all_rows, all_scores, rows
+
+    # (4) The mailbox reopened as EmailMemory with ConversationSettings()
+    # (the default models: the fake) on the card: lookups held to numpy
+    # over the file's BLOBs, then 12 questions through query().
+    async def open_mailbox(device_kw):
+        settings = ConversationSettings(**device_kw)
+        settings.storage_provider = await create_storage_provider(
+            settings.message_text_index_settings, settings.related_term_index_settings, mail_db, EmailMessage)
+        return await EmailMemory.create(settings, name="mailbox")
+
+    if on_card:
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    memory = await open_mailbox(settings_device)
+    reopen_s = time.perf_counter() - t
+    mindex = memory.secondary_indexes.message_index
+    store = mindex._vectorbase
+    require(store._device.type == dev.type, f"mailbox index on {store._device}")
+    mrows = blob_rows(mail_db)
+    # Half the probes an email's own first chunk (it must come first),
+    # half random words of the vocabulary.
+    owners = [int(o) for o in rng.integers(0, n_mail, CONV_SINGLE // 2)]
+    probe = [(await memory.messages.get_item(o)).text_chunks[0] for o in owners]
+    probe += [" ".join(f"word{w}" for w in rng.integers(0, CONV_VOCAB, 5)) for _ in range(CONV_SINGLE // 2)]
+    q_mail = np.stack([await mindex.generate_embedding(text) for text in probe])
+    topk.reset_launch_counts()
+    b1_ms, b1_hits = [], []
+    for text in probe:
+        t = time.perf_counter()
+        b1_hits.append(await mindex.lookup_messages(text, max_matches=K_MAIN))
+        b1_ms.append((time.perf_counter() - t) * 1e3)
+    counts_lookup = topk.launch_counts()
+    launches.append(counts_lookup)
+    require(counts_lookup["topk"] > 0 or not on_card, f"mailbox lookups: no K1 {counts_lookup}")
+    # The store's rows for the same queries, b = 1 and b = 64, held to
+    # numpy (launches outside the path's count).
+    rows_b1 = [store.fuzzy_lookup_embedding(q, max_hits=K_MAIN, min_score=0.0) for q in q_mail]
+    rows_batch = store.fuzzy_lookup_embeddings_batch(q_mail, max_hits=K_MAIN, min_score=0.0)
+    topk.reset_launch_counts()
+    scores = unit_scores(q_mail, mrows)
+    lookup_err = 0.0
+    for r in range(len(probe)):
+        for what, got in (("b=1", rows_b1[r]), ("b=64", rows_batch[r])):
+            lookup_err = max(lookup_err, check_top([(h.item, h.score) for h in got], scores[r], K_MAIN, 0.0,
+                                                   f"mailbox {what} lookup {r}"))
+    for r, o in enumerate(owners):
+        require(b1_hits[r] and b1_hits[r][0].message_ordinal == o, f"mailbox lookup {r}: own email not first")
+    out["mail_lookups"] = {"rows": int(mrows.shape[0]), "probes": len(probe), "own_text": len(owners),
+                           "b1_ms_p50": float(np.percentile(b1_ms, 50)),
+                           "b1_ms_p90": float(np.percentile(b1_ms, 90)),
+                           "max_score_err": lookup_err,
+                           "launches": {k: v for k, v in counts_lookup.items() if v}}
+    del mrows
+
+    qtexts = list(mail_questions)
+    marks = span_marks()
+    topk.reset_launch_counts()
+    card_answers, q_ms = [], []
+    for question in qtexts:
+        t = time.perf_counter()
+        card_answers.append(await memory.query(question))
+        q_ms.append((time.perf_counter() - t) * 1e3)
+    launches.append(topk.launch_counts())
+    stage_ms = span_ms_since(marks)
+    for kind, answer in zip(MAILBOX_KINDS, card_answers):
+        require(bool(answer) and "Search failed" not in answer, f"mailbox query ({kind}): {answer[:200]!r}")
+        require(answer.startswith("No answer found") == (kind == "nothing"),
+                f"mailbox query ({kind}): {answer[:200]!r}")
+    await memory.settings.storage_provider.close()
+    del memory, mindex, store
+    gc.collect()
+    # The same file on the CPU: the same answers.
+    t = time.perf_counter()
+    cpu_memory = await open_mailbox({"device": "cpu"})
+    cpu_reopen_s = time.perf_counter() - t
+    cpu_answers = [await cpu_memory.query(question) for question in qtexts]
+    await cpu_memory.settings.storage_provider.close()
+    del cpu_memory
+    require(cpu_answers == card_answers, "mailbox answers on the card and the CPU differ")
+    out["mail_query"] = {
+        "questions": len(qtexts), "kinds": list(MAILBOX_KINDS), "reopen_s": round(reopen_s, 3),
+        "cpu_reopen_s": round(cpu_reopen_s, 3), "first_ms": q_ms[0],
+        "ms_p50": float(np.percentile(q_ms, 50)), "ms_p90": float(np.percentile(q_ms, 90)),
+        "ms": [round(x, 3) for x in q_ms], "stage_ms": stage_ms,
+        "answered": sum(not a.startswith("No answer found") for a in card_answers),
+        "same_answers_on_cpu": True,
+    }
+
+
 def engine_bytes_per_posting(executor) -> list[dict]:
     """The sorted core's peak device memory per posting it reads, for the
     guard's ``_ENTRY_BYTES``: one COO call over the largest list, and over
@@ -1413,18 +1923,32 @@ def engine_bytes_per_posting(executor) -> list[dict]:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="The port's smoke, on one CUDA card.")
+    parser.add_argument("--front-doors", action="store_true", help="build the kernels and run phase 16 alone")
+    parser.add_argument("--turns", type=int, default=POD_TURNS, help="phase 16's turns per podcast archive")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on the card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, REPO)
     from typeagent_tpu_torch.models.adapters import create_test_embedding_model
     from typeagent_tpu_torch.ops import _build, int4, ivf, topk
     from typeagent_tpu_torch.parallel import CorpusVectorStore
     from typeagent_tpu_torch.serve import LookupBatcher
     from typeagent_tpu_torch.utils.metrics import METRICS
     from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings, VectorStore
+
+    if args.front_doors:
+        print(smi_line(), flush=True)
+        _build.kernels()
+        out16, _ = asyncio.run(front_doors_phase(torch.device("cuda", 0), n_turns=args.turns))
+        out16.update({"nvidia_smi": smi_line(), "ok": True})
+        emit(out16)
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2814,6 +3338,15 @@ def main() -> int:
     add_path_launches(counts15)
     out15.update({"nvidia_smi": smi_line(), "ok": True})
     emit(out15)
+
+    # 16. the front doors: HTTP models, the email CLIs, query() on a
+    # mailbox, the MCP server, the conversation corpus.
+    gc.collect()
+    torch.cuda.empty_cache()
+    out16, counts16 = asyncio.run(front_doors_phase(dev, n_turns=args.turns))
+    add_path_launches(counts16)
+    out16.update({"nvidia_smi": smi_line(), "ok": True})
+    emit(out16)
 
     # --------------------------------------------------------------- summary
     for name in ENTRIES:

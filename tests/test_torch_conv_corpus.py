@@ -15,7 +15,10 @@ conversations from the same helpers:
 * :func:`make_questions` — 16 questions over a corpus, each with the
   stage-1 ``searchQueryExpr`` JSON a chat model would return for it, made
   from the seed out of the corpus's own speakers and words (for the
-  canned chat model of ``models/canned.py``).
+  canned chat model of ``models/canned.py``);
+* :func:`make_mailbox`, :func:`email_text` and :func:`mailbox_questions` —
+  the same for a mailbox: seed-made emails with display names, Cc,
+  replies and forwards, as RFC 5322 text, and 12 questions over them.
 """
 
 import asyncio
@@ -228,6 +231,150 @@ def metadata_semrefs(raw: list[dict]) -> int:
 
 
 # ---------------------------------------------------------------------------
+# A seed-made mailbox (the email domain's tests and chip_smoke.py phase 16)
+# ---------------------------------------------------------------------------
+
+_FIRST = ("Ada", "Ben", "Cleo", "Dev", "Eva", "Finn", "Gia", "Hugo", "Iris", "Jon",
+          "Kai", "Lena", "Milo", "Nia", "Omar", "Pia", "Quinn", "Rosa", "Sam", "Tara")
+_LAST = ("Abbott", "Brooks", "Chen")
+
+
+def make_mailbox(seed: int, n: int, vocab: int = 200, correspondents: int = 60,
+                 phrases: int = 400) -> list[dict]:
+    """``n`` raw emails in date order: sender and 1-4 recipients (To, then
+    Cc) among ``correspondents`` people with display names, a subject from
+    ``phrases`` seed-made phrases, a body of 30-300 words of the corpus
+    vocabulary; 30% replies to an earlier email (``In-Reply-To``, "Re:",
+    the earlier body quoted under an "On ... wrote:" line) and 5% forwards
+    ("Fwd:", the earlier email under a forwarded-message header)."""
+    rng = np.random.default_rng(seed)
+    people = [(f"{_FIRST[i % len(_FIRST)]} {_LAST[i // len(_FIRST) % len(_LAST)]}",
+               f"{_FIRST[i % len(_FIRST)].lower()}.{_LAST[i // len(_FIRST) % len(_LAST)].lower()}{i}@example.com")
+              for i in range(correspondents)]
+    subjects = [" ".join(f"word{w}" for w in rng.integers(0, vocab, rng.integers(2, 6)))
+                for _ in range(phrases)]
+    out: list[dict] = []
+    for i in range(n):
+        who = rng.permutation(correspondents)[: 1 + int(rng.integers(1, 5))]
+        n_to = int(rng.integers(1, len(who)))  # at least one To; the rest Cc
+        body = " ".join(f"word{w}" for w in rng.integers(0, vocab, rng.integers(30, 301)))
+        kind = rng.random()
+        stamp = T0 + timedelta(seconds=int(i * 365 * 86400 / max(n, 1)) + int(rng.integers(0, 600)))
+        m = {"id": f"<m{seed}.{i}@example.com>", "sender": people[who[0]],
+             "to": [people[j] for j in who[1 : 1 + n_to]], "cc": [people[j] for j in who[1 + n_to :]],
+             "subject": subjects[int(rng.integers(phrases))], "body": body, "date": stamp,
+             "reply_to": None, "forward_of": None}
+        if out and kind < 0.30:
+            parent = out[int(rng.integers(len(out)))]
+            m["reply_to"], m["subject"] = parent, "Re: " + parent["subject"].removeprefix("Re: ")
+        elif out and kind < 0.35:
+            parent = out[int(rng.integers(len(out)))]
+            m["forward_of"], m["subject"] = parent, "Fwd: " + parent["subject"]
+        out.append(m)
+    return out
+
+
+def _wrap(text: str, width: int = 76) -> str:
+    lines, line = [], ""
+    for word in text.split():
+        if line and len(line) + 1 + len(word) > width:
+            lines.append(line)
+            line = word
+        else:
+            line = f"{line} {word}" if line else word
+    return "\n".join(lines + [line])
+
+
+def email_text(m: dict) -> str:
+    """One raw email of :func:`make_mailbox` as RFC 5322 text."""
+    from email.utils import format_datetime
+
+    def addr(person):
+        return f"{person[0]} <{person[1]}>"
+
+    head = [f"From: {addr(m['sender'])}", f"To: {', '.join(map(addr, m['to']))}"]
+    if m["cc"]:
+        head.append(f"Cc: {', '.join(map(addr, m['cc']))}")
+    head += [f"Subject: {m['subject']}", f"Date: {format_datetime(m['date'])}", f"Message-ID: {m['id']}"]
+    body = _wrap(m["body"])
+    if m["reply_to"] is not None:
+        parent = m["reply_to"]
+        head += [f"In-Reply-To: {parent['id']}", f"References: {parent['id']}"]
+        quoted = "\n".join("> " + line for line in _wrap(parent["body"]).splitlines())
+        body += f"\n\nOn {format_datetime(parent['date'])}, {addr(parent['sender'])} wrote:\n{quoted}"
+    elif m["forward_of"] is not None:
+        parent = m["forward_of"]
+        body += ("\n\n---------- Forwarded message ---------\n"
+                 f"From: {addr(parent['sender'])}\nSubject: {parent['subject']}\n\n{_wrap(parent['body'])}")
+    head += ["MIME-Version: 1.0", 'Content-Type: text/plain; charset="us-ascii"',
+             "Content-Transfer-Encoding: 7bit"]
+    return "\n".join(head) + "\n\n" + body + "\n"
+
+
+# The kinds of mailbox_questions, in order: a sender's display name with a
+# subject word, a recipient (To or Cc) as an entity, a subject's words, a
+# "sent" action from a sender to a recipient, a one-week date range with a
+# word, two search expressions, and one that matches nothing.
+MAILBOX_KINDS = ("sender", "sender", "recipient", "recipient", "subject", "subject",
+                 "sent", "sent", "week", "week", "two", "nothing")
+
+
+def mailbox_questions(raw: list[dict], seed: int) -> dict[str, dict]:
+    """Question text -> its stage-1 ``searchQueryExpr`` JSON, one question
+    of each of :data:`MAILBOX_KINDS`, from the mailbox's own people,
+    subjects and dates."""
+    rng = np.random.default_rng(seed)
+
+    def email() -> dict:
+        return raw[int(rng.integers(len(raw)))]
+
+    def entity(name: str) -> dict:
+        return {"name": name, "isNamePronoun": False}
+
+    def day(t: datetime) -> dict:
+        return {"date": {"day": t.day, "month": t.month, "year": t.year}}
+
+    out = {}
+    for i, kind in enumerate(MAILBOX_KINDS):
+        m = email()
+        words = m["subject"].removeprefix("Re: ").removeprefix("Fwd: ").split()
+        if kind == "sender":
+            text, filters = f"what did {m['sender'][0]} send about {words[0]}", [
+                {"entitySearchTerms": [entity(m["sender"][0])], "searchTerms": [words[0]]}]
+        elif kind == "recipient":
+            person = (m["to"] + m["cc"])[-1][0]
+            text, filters = f"what went to {person}", [{"entitySearchTerms": [entity(person)]}]
+        elif kind == "subject":
+            text, filters = f"what was written about {' '.join(words)}", [{"searchTerms": words}]
+        elif kind == "sent":
+            text, filters = f"what did {m['sender'][0]} send to {m['to'][0][0]}", [
+                {"actionSearchTerm": {"actorEntities": [entity(m["sender"][0])], "isInformational": False,
+                                      "actionVerbs": {"words": ["sent"], "tense": "Past"},
+                                      "targetEntities": [entity(m["to"][0][0])]}}]
+        elif kind == "week":
+            start = m["date"].replace(hour=0, minute=0, second=0)
+            text, filters = f"what was said about {words[0]} in the week of {start:%B %d}", [
+                {"searchTerms": [words[0]], "timeRange": {"startDate": day(start),
+                                                          "stopDate": day(start + timedelta(days=7))}}]
+        elif kind == "two":
+            other = email()
+            out[f"Mail question {i}: what about {words[0]}, and what did {other['sender'][0]} send?"] = {
+                "searchExpressions": [
+                    {"rewrittenQuery": f"what about {words[0]}", "filters": [{"searchTerms": [words[0]]}]},
+                    {"rewrittenQuery": f"what did {other['sender'][0]} send",
+                     "filters": [{"entitySearchTerms": [entity(other["sender"][0])]}]},
+                ]}
+            continue
+        else:  # nothing: a range before the mailbox
+            text, filters = f"what was written about {words[0]} in 1990", [
+                {"searchTerms": [words[0]], "timeRange": {
+                    "startDate": {"date": {"day": 1, "month": 1, "year": 1990}},
+                    "stopDate": {"date": {"day": 31, "month": 12, "year": 1990}}}}]
+        out[f"Mail question {i}: {text}?"] = {"searchExpressions": [{"rewrittenQuery": text, "filters": filters}]}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The port alone, on the CPU
 # ---------------------------------------------------------------------------
 
@@ -274,23 +421,35 @@ async def test_snapshot_roundtrip_answers_the_same(tmp_path):
     assert first["semanticIndexData"] == second["semanticIndexData"]
 
 
-async def test_query_and_streaming_name_their_item():
-    """``query()`` and ``add_messages_streaming`` run; what they still need
-    from the HTTP chat adapters (the default chat model behind the
-    translators and the default extractor) raises naming item 14."""
+async def test_query_and_streaming_name_their_item(monkeypatch):
+    """``query()`` without translators and ``add_messages_streaming``
+    without an extractor build the default HTTP chat model (ROADMAP.md
+    Queue 1 item 14, ported) from the environment, as in JAX: here a
+    loopback fake that answers stage 1, stage 4 and extraction."""
+    from test_torch_fake_endpoint import FakeEndpoint, canned_responder, point_models_at
+
     conv, _ = await port_conversation(make_corpus(13, 5))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        await conv.query("who spoke?")
+    first = (await conv.messages.get_item(0)).text_chunks[0].split()[0]
+    stage1 = {"who spoke?": {"searchExpressions": [
+        {"rewrittenQuery": "who spoke?", "filters": [{"searchTerms": [first]}]}]}}
+    with FakeEndpoint(canned_responder(stage1)) as fake:
+        point_models_at(fake, monkeypatch)
+        answer = await conv.query("who spoke?")
+        assert answer and "Search failed" not in answer and "No answer" not in answer
 
-    async def stream():
-        for m in to_messages(make_corpus(13, 3), ConversationMessage, ConversationMessageMeta):
-            yield m
+        async def stream():
+            for m in to_messages(make_corpus(13, 3), ConversationMessage, ConversationMessageMeta):
+                yield m
 
-    result = await conv.add_messages_streaming(stream())
-    assert result.messages_added == 3 and await conv.messages.size() == 8
-    conv.settings.semantic_ref_index_settings.knowledge_extractor = None
-    with pytest.raises(NotImplementedError, match="item 14"):
-        await conv.add_messages_streaming(stream())
+        result = await conv.add_messages_streaming(stream())
+        assert result.messages_added == 3 and await conv.messages.size() == 8
+        conv.settings.semantic_ref_index_settings.knowledge_extractor = None
+        before = await conv.semantic_refs.size()
+        result = await conv.add_messages_streaming(stream())
+        assert result.messages_added == 3 and await conv.semantic_refs.size() - before == result.semrefs_added
+        stats = fake.stats()
+    assert stats["chat"] >= 2 + 3  # stage 1, stage 4, one extraction per message
+    assert stats["embeddings"] == 0  # the settings' model is the test embedder
 
 
 async def test_dbname_names_item_12(tmp_path):
@@ -310,23 +469,48 @@ async def test_dbname_names_item_12(tmp_path):
         )
 
 
-async def test_default_extractor_names_item_14():
+async def test_default_extractor_names_item_14(monkeypatch):
+    """Without an extractor the default one runs over the default HTTP chat
+    model (item 14, ported): the fake's extraction adds one entity and two
+    topics a message, as ``WordExtractor`` does."""
+    from test_torch_fake_endpoint import FakeEndpoint, canned_responder, point_models_at
+
+    raw = make_corpus(14, 2)
+    msgs = to_messages(raw, ConversationMessage, ConversationMessageMeta)
     settings = port_settings(16)
     settings.semantic_ref_index_settings.knowledge_extractor = None
-    conv = await create_conversation(None, ConversationMessage, settings=settings)
-    msgs = to_messages(make_corpus(14, 2), ConversationMessage, ConversationMessageMeta)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        await conv.add_messages_with_indexing(msgs)
+    with FakeEndpoint(canned_responder()) as fake:
+        point_models_at(fake, monkeypatch)
+        conv = await create_conversation(None, ConversationMessage, settings=settings)
+        result = await conv.add_messages_with_indexing(msgs)
+    assert result.messages_added == 2 and result.semrefs_added == metadata_semrefs(raw) + 3 * 2
+    assert fake.stats()["chat"] == 2
     # With extraction off, the metadata knowledge alone is indexed.
+    settings = port_settings(16)
+    settings.semantic_ref_index_settings.knowledge_extractor = None
     settings.semantic_ref_index_settings.auto_extract_knowledge = False
     conv = await create_conversation(None, ConversationMessage, settings=settings)
     result = await conv.add_messages_with_indexing(msgs)
-    assert result.messages_added == 2 and result.semrefs_added > 0
+    assert result.messages_added == 2 and result.semrefs_added == metadata_semrefs(raw)
 
 
-def test_settings_without_a_model_name_item_14():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ConversationSettings()
+async def test_settings_without_a_model_name_item_14(monkeypatch):
+    """``ConversationSettings()`` builds the default HTTP embedding model
+    from the environment (item 14, ported), as in JAX."""
+    from test_torch_fake_endpoint import FakeEndpoint, hash_embedding, point_models_at
+
+    from typeagent_tpu_torch.models.adapters import HttpEmbedder
+    from typeagent_tpu_torch.models.embeddings import normalize
+
+    with FakeEndpoint(dim=32) as fake:
+        point_models_at(fake, monkeypatch)
+        settings = ConversationSettings(device="cpu")
+        model = settings.embedding_model
+        assert isinstance(model._embedder, HttpEmbedder)
+        assert model.model_name == "text-embedding-ada-002"
+        assert settings.message_text_index_settings.embedding_index_settings.embedding_model is model
+        got = await model.get_embedding("hello")
+    np.testing.assert_allclose(got, normalize(hash_embedding("hello", 32)), rtol=0, atol=1e-6)
 
 
 def test_settings_need_a_card_or_cpu():

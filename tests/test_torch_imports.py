@@ -311,7 +311,7 @@ _GUARD = (
     "import builtins\n"
     "real = builtins.__import__\n"
     "def guard(name, *a, **k):\n"
-    "    if name.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'pydantic', 'httpx', 'typeagent_tpu'):\n"
+    "    if name.split('.')[0] in ('jax', 'jaxlib', 'ml_dtypes', 'pydantic', 'httpx', 'azure', 'typeagent_tpu'):\n"
     "        raise ImportError(f'forbidden import {name}')\n"
     "    return real(name, *a, **k)\n"
     "builtins.__import__ = guard\n"
@@ -321,18 +321,21 @@ _GUARD = (
 )
 
 
-def _cli(args: list[str], tmp_path) -> subprocess.CompletedProcess:
-    """``python -m typeagent_tpu_torch.tools.<args>`` in a process where
-    importing jax, ml_dtypes, pydantic, httpx or ``typeagent_tpu`` fails."""
+def _cli(args: list[str], tmp_path, module: str = "", stdin: str | None = None,
+         **env_vars: str) -> subprocess.CompletedProcess:
+    """``python -m typeagent_tpu_torch.tools.<args>`` (or ``module``) in a
+    process where importing jax, ml_dtypes, pydantic, httpx, azure or
+    ``typeagent_tpu`` fails."""
+    module = module or f"typeagent_tpu_torch.tools.{args[0]}"
     code = _GUARD + (
         "import runpy\n"
         f"sys.argv = {args!r}\n"
-        f"runpy.run_module('typeagent_tpu_torch.tools.{args[0]}', run_name='__main__')\n"
+        f"runpy.run_module({module!r}, run_name='__main__')\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent), **env_vars)
     return subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True, env=env,
-        cwd=str(tmp_path), timeout=120,
+        cwd=str(tmp_path), timeout=120, input=stdin,
     )
 
 
@@ -372,3 +375,92 @@ def test_clis_without_a_card_exit_with_the_settings_error(tmp_path):
         assert proc.returncode != 0
         assert "no CUDA device is available" in proc.stderr
         assert "Traceback" in proc.stderr and not proc.stdout.strip()
+
+
+def test_package_has_the_front_door_modules():
+    for name in (
+        "typeagent_tpu_torch.models.auth",
+        "typeagent_tpu_torch.emails.email_message",
+        "typeagent_tpu_torch.emails.email_import",
+        "typeagent_tpu_torch.emails.email_memory",
+        "typeagent_tpu_torch.tools.ingest_email",
+        "typeagent_tpu_torch.tools.load_json",
+        "typeagent_tpu_torch.tools.mail.dump_mbox",
+        "typeagent_tpu_torch.tools.mail.print_timestamps",
+        "typeagent_tpu_torch.parallel.conversation_corpus",
+        "typeagent_tpu_torch.mcp.protocol",
+        "typeagent_tpu_torch.mcp.server",
+    ):
+        assert name in MODULES
+
+
+def _module_level_roots(path: pathlib.Path) -> set[str]:
+    """The packages a module imports when it is imported: its statements
+    outside the bodies of functions and methods."""
+    roots = set()
+
+    def visit(node: ast.AST) -> None:
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                roots.update(alias.name.split(".")[0] for alias in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                roots.add(child.module.split(".")[0])
+            visit(child)
+
+    visit(ast.parse(path.read_text(), filename=str(path)))
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name)
+def test_module_imports_no_azure_at_import(path):
+    """``azure.identity`` is imported only inside the managed-identity
+    token provider, when no credential is given (``models/auth.py``)."""
+    assert "azure" not in _module_level_roots(path)
+    if path.name != "auth.py":
+        assert "azure" not in _imported_roots(path)
+
+
+def test_ingest_email_and_mcp_server_run_without_jax_pydantic_httpx_azure(tmp_path):
+    """``ingest_email`` into SQLite, then the MCP server over that file
+    (initialize, tools/list, the conversation's info, ping), each as
+    ``python -m`` on the CPU, with JAX, pydantic, httpx, azure and
+    ``typeagent_tpu`` unimportable."""
+    import json
+
+    mail = tmp_path / "mail"
+    mail.mkdir()
+    (mail / "a.eml").write_text((PKG.parent / "tests" / "testdata" / "sample.eml").read_text())
+    db = str(tmp_path / "mail.db")
+    proc = _cli(["ingest_email", str(mail), "-d", db, "--no-extract-knowledge", "--device", "cpu"],
+                tmp_path, OPENAI_EMBEDDING_MODEL="test:8")
+    assert proc.returncode == 0, proc.stderr
+    assert "Ingested 1 emails" in proc.stdout
+    script = [
+        {"jsonrpc": "2.0", "id": 1, "method": "initialize", "params": {"protocolVersion": "2024-11-05"}},
+        {"jsonrpc": "2.0", "id": 2, "method": "tools/list", "params": {}},
+        {"jsonrpc": "2.0", "id": 3, "method": "resources/read", "params": {"uri": "conversation://info"}},
+        {"jsonrpc": "2.0", "id": 4, "method": "ping", "params": {}},
+    ]
+    proc = _cli(["server", "-d", db, "--embedding-model", "test:8", "--device", "cpu"], tmp_path,
+                module="typeagent_tpu_torch.mcp.server", stdin="".join(json.dumps(m) + "\n" for m in script))
+    assert proc.returncode == 0, proc.stderr
+    replies = {m["id"]: m for m in map(json.loads, proc.stdout.splitlines())}
+    assert replies[1]["result"]["serverInfo"]["name"] == "typeagent-tpu"
+    assert [t["name"] for t in replies[2]["result"]["tools"]] == ["query_conversation"]
+    assert json.loads(replies[3]["result"]["contents"][0]["text"])["messages"] == 1
+    assert replies[4]["result"] == {}
+
+
+def test_mcp_server_without_a_card_refuses_to_start(tmp_path):
+    """Without ``--device cpu`` the server's conversations would live on
+    the card; without one it exits non-zero before serving."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a CUDA device")
+    proc = _cli(["server", "-d", str(tmp_path / "x.db")], tmp_path, module="typeagent_tpu_torch.mcp.server",
+                stdin="")
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr and not proc.stdout.strip()

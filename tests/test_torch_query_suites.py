@@ -67,13 +67,18 @@ EXCLUDED = {
 }
 
 
-def _source(suite: str, drop: tuple[str, ...] = ()) -> str:
+def _source(suite: str, drop: tuple[str, ...] = (), rewrite: tuple[tuple[str, str], ...] = ()) -> str:
     src = (TESTS / suite).read_text()
     for line in drop:
         # An import of a module the port does not have; the tests that use
         # it stand in the caller's EXCLUDED.
         assert src.count(line + "\n") == 1, (suite, line)
         src = src.replace(line + "\n", "")
+    for old, new in rewrite:
+        # A text the caller adapts (an argument the port's entry point
+        # needs), each occurrence.
+        assert old in src, (suite, old)
+        src = src.replace(old, new)
     if suite == "test_canned_replay.py":
         # The unit half only: the integration half loads the reference
         # corpus through the eval tool at import (see EXCLUDED).
@@ -86,12 +91,12 @@ def _source(suite: str, drop: tuple[str, ...] = ()) -> str:
     return src
 
 
-def _load(suite: str, drop: tuple[str, ...] = ()) -> types.ModuleType:
+def _load(suite: str, drop: tuple[str, ...] = (), rewrite: tuple[tuple[str, str], ...] = ()) -> types.ModuleType:
     name = f"port_mirror_{pathlib.Path(suite).stem}"
     module = types.ModuleType(name)
     module.__file__ = str(TESTS / suite)
     sys.modules[name] = module
-    exec(compile(_source(suite, drop), f"<{suite} against typeagent_tpu_torch>", "exec"), module.__dict__)
+    exec(compile(_source(suite, drop, rewrite), f"<{suite} against typeagent_tpu_torch>", "exec"), module.__dict__)
     # The suites build embedding settings and postings indexes with the
     # default device, and conversations without settings.
     module.TextEmbeddingIndexSettings = functools.partial(TextEmbeddingIndexSettings, device="cpu")
@@ -115,17 +120,19 @@ def _own(module: types.ModuleType, obj) -> bool:
 
 
 def mirror(
-    suites, excluded: dict, namespace: dict, drop: dict[str, tuple[str, ...]] | None = None
+    suites, excluded: dict, namespace: dict, drop: dict[str, tuple[str, ...]] | None = None,
+    rewrite: dict[str, tuple[tuple[str, str], ...]] | None = None,
 ) -> dict[str, list[str]]:
     """Load each suite and put its tests, classes and fixtures into
     ``namespace`` (a test module's globals) under the suite's name; returns
     the tests mirrored per suite. ``drop`` names, per suite, whole source
     lines (module-level imports of what the port lacks) taken out before
-    the suite runs."""
+    the suite runs; ``rewrite``, per suite, (old, new) texts replaced (the
+    caller says why)."""
     mirrored: dict[str, list[str]] = {}
     owners: dict[str, str] = {}
     for suite in suites:
-        module = _load(suite, (drop or {}).get(suite, ()))
+        module = _load(suite, (drop or {}).get(suite, ()), (rewrite or {}).get(suite, ()))
         stem = pathlib.Path(suite).stem
         mirrored[suite] = []
         for name, obj in list(vars(module).items()):

@@ -34,7 +34,9 @@ def _http_error(code: int) -> urllib.error.HTTPError:
     (_http_error(400), False),
     (_http_error(404), False),
     (ValueError("x"), False),
-    (urllib.error.URLError("no route"), False),
+    # A host that cannot be reached: transient, as httpx's ConnectError is
+    # in the JAX package.
+    (urllib.error.URLError("no route"), True),
 ])
 def test_is_transient(exc, transient):
     assert is_transient(exc) is transient

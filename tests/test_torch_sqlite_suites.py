@@ -6,10 +6,18 @@ Each suite is read from its source with its imports pointed at
 ``test_torch_query_suites.mirror``, and each test is put into this module
 under ``test_<suite>__<test>``, on CPU tensors (``device="cpu"``, as there).
 The tests the port cannot run are in :data:`EXCLUDED`, each with its
-reason; :data:`DROPPED` names the module-level imports taken out for them.
+reason; :data:`DROPPED` names the module-level imports taken out for them
+(none since the email domain and the mail tools were ported). The email
+CLI's ``ingest_emails`` builds its settings on the port's default device,
+the card, so the suites see it with ``device="cpu"``, as they see
+``TextEmbeddingIndexSettings``.
 """
 
+import functools
+import sys
+
 from test_torch_query_suites import check_mirrored, mirror
+from typeagent_tpu_torch.tools.ingest_email import ingest_emails
 
 SUITES = (
     "test_persistence.py",
@@ -24,27 +32,16 @@ SUITES = (
     "test_tools.py",
     "test_property_laws.py",
 )
-_EMAILS = "emails/ and tools/ingest_email.py are not ported (ROADMAP.md Queue 1 item 13)"
-_MAIL = "tools/mail/ (the mailbox dump tools) is not ported (ROADMAP.md Queue 1 item 13)"
-DROPPED = {
-    "test_domains.py": (
-        "from typeagent_tpu.emails.email_import import (\n"
-        "    get_last_response_in_thread,\n"
-        "    import_email_string,\n"
-        ")",
-        "from typeagent_tpu.emails.email_memory import EmailMemory",
-        "from typeagent_tpu.emails.email_message import EmailMessage",
-    ),
-    "test_tools.py": (
-        "from typeagent_tpu.tools.ingest_email import ingest_emails",
-        "from typeagent_tpu.tools.mail.dump_mbox import dump_mbox, safe_filename",
-    ),
-}
+_MAIL = (
+    "tools/mail/dump_gmail.py and dump_outlook.py reach cloud mail APIs and are "
+    "not ported yet (ROADMAP.md Queue 1 item 13)"
+)
+DROPPED: dict[str, tuple[str, ...]] = {}
 _NO_SETTINGS = (
     "opens SqliteStorageProvider without index settings, so the provider builds "
-    "TextEmbeddingIndexSettings() over the default HTTP embedding model, which "
-    "the port does not have (ROADMAP.md Queue 1 item 14); adapted below under "
-    "its name with the test model's settings on the CPU"
+    "TextEmbeddingIndexSettings() over the default HTTP embedding model on the "
+    "port's default device, the card; adapted below under its name with the "
+    "test model's settings on the CPU"
 )
 EXCLUDED = {
     ("test_conversation_metadata.py", "test_embedding_model_mismatch_raises"): (
@@ -54,20 +51,12 @@ EXCLUDED = {
     ),
     ("test_conversation_metadata.py", "test_empty_string_timestamp_values_survive_roundtrip"): _NO_SETTINGS,
     ("test_conversation_metadata.py", "test_metadata_shared_access_two_handles"): _NO_SETTINGS,
-    ("test_domains.py", "test_import_email_string"): _EMAILS,
-    ("test_domains.py", "test_email_metadata_knowledge"): _EMAILS,
-    ("test_domains.py", "test_get_last_response_in_thread"): _EMAILS,
-    ("test_domains.py", "test_email_memory_end_to_end"): _EMAILS,
-    ("test_tools.py", "test_ingest_emails_dedupes_and_filters"): _EMAILS,
-    ("test_tools.py", "test_dump_mbox_roundtrip"): _MAIL,
-    ("test_tools.py", "test_safe_filename"): _MAIL,
     ("test_tools.py", "test_dump_gmail_roundtrip"): _MAIL,
     ("test_tools.py", "test_dump_gmail_token_refresh"): _MAIL,
     ("test_tools.py", "test_dump_outlook_roundtrip"): _MAIL,
     ("test_tools.py", "test_outlook_device_code_flow"): _MAIL,
     ("test_tools.py", "test_gmail_cached_token_respects_short_expiry"): _MAIL,
     ("test_tools.py", "test_outlook_safe_name_no_collisions_on_long_ids"): _MAIL,
-    ("test_tools.py", "test_print_timestamps_hex"): _MAIL,
     ("test_tools.py", "test_compare_evals_grid"): (
         "tools/compare_evals.py, an eval tool, is not ported (ROADMAP.md Queue 1 item 13)"
     ),
@@ -80,6 +69,7 @@ EXCLUDED = {
 }
 
 MIRRORED = mirror(SUITES, EXCLUDED, globals(), DROPPED)
+sys.modules["port_mirror_test_tools"].ingest_emails = functools.partial(ingest_emails, device="cpu")
 
 
 def test_every_sqlite_suite_test_is_mirrored_or_excluded():

@@ -356,7 +356,7 @@ def test_warm_serving_runs_each_bucket(rng):
     assert s.warm_serving(max_batch=64) == 4  # 8, 16, 32, 64
 
 
-def test_settings_refuse_unported_modes_and_missing_device():
+def test_settings_refuse_unported_modes_and_missing_device(monkeypatch):
     model = create_test_embedding_model(8)
     for mode in ("approx", "ivf"):  # ported
         assert TextEmbeddingIndexSettings(embedding_model=model, device="cpu", search_mode=mode).search_mode == mode
@@ -366,8 +366,13 @@ def test_settings_refuse_unported_modes_and_missing_device():
     ):
         with pytest.raises(NotImplementedError, match=item):
             TextEmbeddingIndexSettings(embedding_model=model, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="HTTP"):
-        TextEmbeddingIndexSettings(device="cpu")
+    # No model: the default HTTP embedding model from the environment, as
+    # in JAX (nothing is requested until an embedding is asked for).
+    for name in ("OPENAI_EMBEDDING_MODEL", "OPENAI_API_KEY", "AZURE_OPENAI_API_KEY"):
+        monkeypatch.delenv(name, raising=False)
+    default = TextEmbeddingIndexSettings(device="cpu").embedding_model
+    assert type(default._embedder).__name__ == "HttpEmbedder"
+    assert default.model_name == "text-embedding-ada-002"
     with pytest.raises(ValueError):
         TextEmbeddingIndexSettings(embedding_model=model, device="cpu", search_mode="fast")
     # int8 stores are ported; the JAX package's ValueErrors for the

@@ -6,12 +6,9 @@ ordering: mark sources -> extend messages -> metadata knowledge -> optional
 LLM knowledge -> secondary indexes -> timestamps; streaming commits via
 precomputed embeddings; the 4-stage query() path.)
 
-The default chat model, which the default LLM knowledge extractor and the
-query translators are built on, needs the HTTP chat adapters (ROADMAP.md
-Queue 1 item 14), so both raise ``NotImplementedError`` naming that item:
-pass ``settings.semantic_ref_index_settings.knowledge_extractor`` (or turn
-``auto_extract_knowledge`` off), and set ``_query_translator`` /
-``_answer_translator`` over a chat model of your own before ``query()``.
+The default LLM knowledge extractor and the query translators are built,
+as in JAX, over the default HTTP chat model (``settings.chat_retrier``),
+configured from the environment.
 """
 
 from __future__ import annotations
@@ -502,9 +499,7 @@ class ConversationBase(
     # -- the 4-stage query path ----------------------------------------------
 
     def _lazy_translators(self) -> None:
-        """Lazy stage-1/stage-4 translators over the default chat model,
-        which raises until the HTTP adapters are ported (ROADMAP.md Queue 1
-        item 14): set the translators first."""
+        """Lazy stage-1/stage-4 translators over the configured chat model."""
         if self._query_translator is not None and self._answer_translator is not None:
             return
         from ..models.adapters import create_chat_model

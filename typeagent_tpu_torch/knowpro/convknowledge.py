@@ -4,8 +4,8 @@
 over the chat model with a conversation-specific request prompt.)
 
 The port of ``typeagent_tpu/knowpro/convknowledge.py``: any ``IChatModel``
-passed as ``model=`` works; the default chat model needs the HTTP adapters
-(ROADMAP.md Queue 1 item 14), so leaving ``model`` out raises.
+passed as ``model=`` works; left out, the default HTTP chat model is built
+from the environment.
 """
 
 from __future__ import annotations

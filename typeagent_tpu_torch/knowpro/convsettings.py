@@ -5,15 +5,13 @@ share one embedding model (one shared cache). Defaults: related-terms
 min_score 0.85 / max 50 matches, message-text min_score 0.70, extraction
 concurrency 4, auto-extract on.
 
-Two differences from the JAX settings:
-
-* no HTTP embedding model is built when ``model`` is None: the adapters are
-  not ported (ROADMAP Queue 1 item 14), so the settings raise, as the
-  port's ``TextEmbeddingIndexSettings(embedding_model=None)`` does;
-* ``device`` names where every embedding-backed index (message text,
-  related-terms fuzzy index, threads) keeps its rows. It defaults to the
-  card, and without a card the settings raise unless ``device="cpu"`` is
-  given: nothing falls back to the CPU on its own.
+With no ``model``, the settings build the default HTTP embedding model
+from the environment (``models.adapters.create_embedding_model`` with
+``embed_retrier``), as the JAX settings do. One difference: ``device``
+names where every embedding-backed index (message text, related-terms
+fuzzy index, threads) keeps its rows. It defaults to the card, and
+without a card the settings raise unless ``device="cpu"`` is given:
+nothing falls back to the CPU on its own.
 """
 
 from __future__ import annotations
@@ -76,16 +74,15 @@ class ConversationSettings:
         search_mode: str = "exact",
         device: str | torch.device = "cuda",
     ):
-        if model is None:
-            raise NotImplementedError(
-                "the HTTP embedding adapters are not ported yet (ROADMAP.md "
-                "Queue 1 item 14); pass model= (e.g. "
-                "models.adapters.create_test_embedding_model())"
-            )
         self.chat_retrier = chat_retrier
         self.embed_retrier = embed_retrier
         self._storage_provider = storage_provider
         self.mesh = mesh
+
+        if model is None:
+            from ..models.adapters import create_embedding_model
+
+            model = create_embedding_model(retrier=embed_retrier)
         self.embedding_model = model
 
         def emb(min_score: float, max_matches: int | None = None) -> TextEmbeddingIndexSettings:

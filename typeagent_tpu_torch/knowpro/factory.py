@@ -1,9 +1,8 @@
 """Factory for conversation objects (parity: reference knowpro/factory.py).
 
 The port of ``typeagent_tpu/knowpro/factory.py``. With no settings given
-it builds ``ConversationSettings()``, which needs an embedding model until
-the HTTP adapters are ported (ROADMAP.md Queue 1 item 14), so callers pass
-settings.
+it builds ``ConversationSettings()``: the default HTTP embedding model from
+the environment, on the card.
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ The port of ``typeagent_tpu/models/retry.py``: 6 attempts, a 120 s total
 budget, a warning logged per retry; tests disable the sleeps with
 :func:`set_testing`. The JAX module recognizes transient errors by
 ``httpx``'s types; this one, which must not import ``httpx``, by the
-standard library's: timeouts, connection errors and
-``urllib.error.HTTPError`` with status 429 or 5xx.
+standard library's, case for case: ``urllib.error.HTTPError`` with status
+429 or 5xx (httpx's ``HTTPStatusError``), ``URLError`` and
+``ConnectionError`` (``ConnectError``), ``TimeoutError``, which
+``socket.timeout`` is (``TimeoutException``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ class TransientError(Exception):
 def is_transient(exc: BaseException) -> bool:
     if isinstance(exc, urllib.error.HTTPError):
         return exc.code == 429 or exc.code >= 500
-    return isinstance(exc, (TransientError, TimeoutError, ConnectionError))
+    return isinstance(
+        exc, (TransientError, TimeoutError, ConnectionError, urllib.error.URLError)
+    )
 
 
 class AsyncRetrier:
@@ -78,3 +82,7 @@ class AsyncRetrier:
                 )
                 if not _TESTING:
                     await asyncio.sleep(delay)
+
+
+DEFAULT_CHAT_RETRIER = AsyncRetrier(attempts=6, timeout=120)
+DEFAULT_EMBED_RETRIER = AsyncRetrier(attempts=6, timeout=120)

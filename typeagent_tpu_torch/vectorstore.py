@@ -158,11 +158,6 @@ class TextEmbeddingIndexSettings:
         query_wire: str = "auto",
         device: str | torch.device = "cuda",
     ):
-        if embedding_model is None:
-            raise NotImplementedError(
-                "the HTTP embedding adapters are not ported yet; pass "
-                "embedding_model= (e.g. models.adapters.create_test_embedding_model())"
-            )
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be float32, bfloat16 or int8, got {dtype!r}")
         if search_mode in ("approx", "ivf") and dtype == "int8":
@@ -185,6 +180,10 @@ class TextEmbeddingIndexSettings:
             )
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device}")
+        if embedding_model is None:
+            from .models.adapters import create_embedding_model
+
+            embedding_model = create_embedding_model()
         self.embedding_model = embedding_model
         model_name = getattr(self.embedding_model, "model_name", "")
         default_min_score = get_default_min_score(model_name)
