@@ -221,6 +221,32 @@ Phases, one JSON line each:
      device memory, the card. ``python3 chip_smoke.py --front-doors
      [--turns N]`` builds the kernels and runs this phase alone (with
      ``--turns 10000``, each archive a season of 10,000 turns).
+ 17. The multi-device layer (``typeagent_tpu_torch/parallel/``) at d = 384,
+     every mesh's cells on the machine's cards (cell j on card j mod the
+     card count) when it has two or more, else all on ``cuda:0``; the
+     line names the grid, and each stage's launches and seconds:
+     (a) phase 6's 9,984,000 x 384 f32 corpus made again from the same
+     generator state on (dp=1, shard=4), searched globally (K1 per
+     shard), scoped to one conversation (K4) and to two (K5) at b = 64,
+     k = 10: every hit held to phase 6's one-device store and to the plain
+     f32 top-k of each shard merged (ties within 2e-6); (b) a 1M x 384 f32
+     store on (2, 2) at b = 256, the dp split's answers held to the
+     one-device store's; (c) the same rows as a bf16 store on (1, 4), saved
+     (``parallel/checkpoint.py``) and restored on (2, 2) and (1, 1) with
+     identical answers, the save's bytes and seconds; (d) a
+     ``ConversationCorpus`` on (1, 4) over two 3,000-message
+     conversations: global and scoped ``search_text``, 500 messages added
+     and a refresh, then ``save`` and ``load`` onto (2, 2) and one device,
+     every hit held to a one-device corpus; (e) phase 12's conversation
+     with a dp = 2 ``_device_mesh``: the 16 questions' stage 3 and answers
+     equal to the one-device engine's, the dp calls and stage-3 ms beside
+     one device's; (f) phase 9's clustered 1M x 384 bf16 rows (the same
+     generator state) in sharded IVF on (1, 4) beside the one-device IVF:
+     recall@10 against the exact top-k and the certificate rate, every
+     certified answer exact up to ties within 1e-5, the sharded recall
+     at most 0.01 under one device's. ``python3 chip_smoke.py
+     --mesh`` builds the kernels and runs this phase alone, with its own
+     references (a one-device corpus, a 20,000-message conversation).
 
 Each phase's line carries ``t_s``, the seconds since the script started.
 
@@ -268,6 +294,7 @@ N_MAIN = 1_000_000
 K_MAIN = 10
 TOL_F32 = 2e-6  # raw f32 scores: summation order differs, no TF32
 TOL_BF16 = 1e-5  # bf16 stores: exact bf16 products, f32 sums
+IVF_SHARD_RECALL_MARGIN = 0.01  # phase 17 (f): sharded IVF recall at most this far under one device's
 TOL_INT8 = 1e-5  # int8 stores: exact bf16 x int8 products, f32 sums, x scale
 # The corpus layout of tools/tpu_corpus10m_probe.py --fragmented.
 CORPUS_NAMES = ("podcast", "mailbox", "wiki")
@@ -324,7 +351,7 @@ CLI_WORDS = ("Bob", "music")
 # Phase 16: the front doors. A mailbox of about a year of one person's work
 # mail and two podcast archives of a season each, through the HTTP models
 # of an OpenAI-compatible fake endpoint at the default spec's width.
-MAIL_EMAILS = 10_000
+MAIL_EMAILS = 5_000  # cut from 10,000 (a year) to make room for phase 17
 MAIL_CORRESPONDENTS = 60
 MAIL_PHRASES = 400
 POD_TURNS = 2_000  # cut from 10,000 a season to keep the smoke inside its limit
@@ -1922,6 +1949,473 @@ def engine_bytes_per_posting(executor) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the multi-device layer (parallel/: meshes, row-sharded stores,
+# sharded IVF, checkpoints, the engine's data-parallel dispatch).
+# ---------------------------------------------------------------------------
+
+
+def mesh_devices(dev, n: int) -> list:
+    """``n`` grid cells over the machine's cards (cell j on card j mod the
+    card count) when it has 2 or more, else all on ``dev``."""
+    import torch
+
+    if dev.type == "cuda" and torch.cuda.device_count() >= 2:
+        cards = torch.cuda.device_count()
+        return [torch.device("cuda", j % cards) for j in range(n)]
+    return [dev] * n
+
+
+def make_mesh(dev, n_dp: int, n_shard: int):
+    from typeagent_tpu_torch.parallel import create_mesh
+
+    return create_mesh(n_shard=n_shard, n_dp=n_dp, devices=mesh_devices(dev, n_dp * n_shard))
+
+
+def sync_all(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+def clustered_rows(gen, dev, n: int, topics: int, n_queries: int):
+    """bench.py section B's corpus on ``dev`` from ``gen``: unit rows around
+    ``topics`` unit centres (sigma 0.35 / sqrt(d) per coordinate), 2%
+    isotropic background, bf16; topic queries made the same way and
+    rounded to bf16, so the exact1 oracle (which scores bf16 queries on a
+    bf16 store) and the rescore (f32 queries) score one query."""
+    import torch
+
+    normalize = torch.nn.functional.normalize
+    centers = normalize(torch.randn((topics, D_MAIN), generator=gen, device=dev), dim=1)
+    out = torch.empty((n, D_MAIN), dtype=torch.bfloat16, device=dev)
+    for s0 in range(0, n, IVF_CHUNK):
+        m = min(IVF_CHUNK, n - s0)
+        lab = torch.randint(0, topics, (m,), generator=gen, device=dev)
+        e = centers[lab] + SIGMA_C * torch.randn((m, D_MAIN), generator=gen, device=dev) / D_MAIN ** 0.5
+        bg = torch.rand((m,), generator=gen, device=dev) < BG_C
+        e = torch.where(bg[:, None], torch.randn((m, D_MAIN), generator=gen, device=dev), e)
+        out[s0 : s0 + m] = normalize(e, dim=1).to(torch.bfloat16)
+    lab = torch.randint(0, topics, (n_queries,), generator=gen, device=dev)
+    q = centers[lab] + SIGMA_C * torch.randn((n_queries, D_MAIN), generator=gen, device=dev) / D_MAIN ** 0.5
+    q = normalize(q, dim=1).to(torch.bfloat16).float()
+    return out, q.cpu().numpy()
+
+
+def build_corpus(corpus, gen, dev, seg_rows: int, chunk: int) -> None:
+    """The fragmented corpus layout (24 interleaved segments over three
+    conversations) from ``gen``'s standard normal rows, made on ``dev``."""
+    import torch
+
+    corpus.reserve(seg_rows * len(CORPUS_LAYOUT))
+    for name in CORPUS_LAYOUT:
+        for done in range(0, seg_rows, chunk):
+            step = min(chunk, seg_rows - done)
+            corpus.append_device(name, torch.randn((step, D_MAIN), generator=gen, device=dev))
+
+
+CORPUS_SCOPES = {"global": None, "podcast": ["podcast"], "podcast+wiki": ["podcast", "wiki"]}
+
+
+def corpus_hits(corpus, q_raw: np.ndarray, k: int) -> dict[str, list]:
+    """Each scope's corpus search as (global ordinal, score) lists."""
+    return {scope: [[(h.global_ordinal, h.score) for h in row]
+                    for row in corpus.search(q_raw, k=k, conversations=conversations)]
+            for scope, conversations in CORPUS_SCOPES.items()}
+
+
+# Phase 17's sizes; the CPU rehearsal in tests/test_torch_smoke_mesh.py cuts them.
+MESH_SIZES = {
+    "corpus_seg_rows": CORPUS_F32_SEG_ROWS,  # (a): 9,984,000 rows, phase 6's layout
+    "corpus_chunk": CORPUS_CHUNK,
+    "corpus_b": CORPUS_B,
+    "store_rows": N_MAIN,  # (b) f32 and (c) bf16
+    "store_b": 256,
+    "conv_messages": 3_000,  # (d): each of two conversations
+    "conv_more": 500,  # (d): then added to one, before a refresh
+    "conv_searches": 16,
+    "ivf_rows": IVF_SCALES[0][0],  # (f): phase 9's clustered 1M rows
+    "ivf_topics": IVF_SCALES[0][1],
+    "ivf_queries": IVF_QUERIES,
+    "ivf_rows_per_cluster": 512,
+    "engine_messages": 20_000,  # (e), run without phase 12's conversation
+}
+
+
+async def mesh_phase(dev, sizes: dict | None = None, phase6: dict | None = None,
+                     ivf_gen_state=None, conv_ctx: dict | None = None) -> tuple[dict, dict]:
+    """Phase 17: the multi-device layer through its entry points, each
+    stage held to its one-device counterpart. ``phase6``: phase 6's
+    generator state, queries and hits (else a one-device corpus is built
+    here first); ``ivf_gen_state``: the generator state phase 9 made its
+    1M rows from; ``conv_ctx``: phase 12's conversation and corpus (else a
+    smaller one is built). Returns the phase's line and its launches.
+
+    The cyclic garbage collector is off for the phase: a collection over
+    the earlier phases' live objects (phase 12's conversation) takes
+    seconds and would land in whichever timed pass crossed its threshold."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        return await _mesh_stages(dev, sizes, phase6, ivf_gen_state, conv_ctx)
+    finally:
+        if enabled:
+            gc.enable()
+
+
+async def _mesh_stages(dev, sizes, phase6, ivf_gen_state, conv_ctx) -> tuple[dict, dict]:
+    import tempfile
+
+    import torch
+
+    from typeagent_tpu_torch import create_conversation
+    from typeagent_tpu_torch.knowpro import searchlang
+    from typeagent_tpu_torch.knowpro.universal_message import ConversationMessage, ConversationMessageMeta
+    from typeagent_tpu_torch.ops import topk
+    from typeagent_tpu_torch.parallel import ConversationCorpus, CorpusVectorStore, ShardedVectorStore
+    from typeagent_tpu_torch.parallel.checkpoint import restore_sharded_store, save_sharded_store
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_conv_corpus import QUESTION_KINDS, ingest, make_corpus, make_questions, port_settings, to_messages
+
+    sizes = {**MESH_SIZES, **(sizes or {})}
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    counts = {}
+    out = {"phase": 17, "cards": torch.cuda.device_count() if on_card else 0,
+           "grid_rule": "cell j on card j mod cards" if len(set(mesh_devices(dev, 2))) > 1 else f"every cell on {dev}"}
+
+    def reset():
+        topk.reset_launch_counts()
+
+    def take(stage: str, required: tuple[str, ...]) -> dict:
+        got = topk.launch_counts()
+        for name, n in got.items():
+            counts[name] = counts.get(name, 0) + n
+        if on_card:
+            for name in required:
+                require(got.get(name, 0) > 0, f"phase 17 {stage}: the {name} kernel never ran ({got})")
+        return {name: n for name, n in got.items() if n}
+
+    def seconds(t0: float) -> float:
+        sync_all(dev)
+        return round(time.perf_counter() - t0, 3)
+
+    def timed_ms(fn, iters: int = 3) -> float:
+        fn()
+        sync_all(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync_all(dev)
+        return round((time.perf_counter() - t0) * 1e3 / iters, 3)
+
+    def shape_of(mesh) -> dict:
+        return {"dp": mesh.shape["dp"], "shard": mesh.shape["shard"],
+                "devices": [[str(d) for d in row] for row in mesh.devices.tolist()]}
+
+    # (a) phase 6's 10M f32 corpus on (dp=1, shard=4), held to phase 6's
+    # one-device store and to the plain f32 top-k shard by shard.
+    t_stage = time.perf_counter()
+    seg_rows, k = sizes["corpus_seg_rows"], K_MAIN
+    gen = torch.Generator(device=dev)
+    if phase6 is None:  # build the one-device reference here, then free it
+        gen.manual_seed(SEED + 6)
+        state = gen.get_state()
+        one = CorpusVectorStore(D_MAIN, device=dev)
+        build_corpus(one, gen, dev, seg_rows, sizes["corpus_chunk"])
+        q_raw = normed(rng, sizes["corpus_b"], D_MAIN)
+        phase6 = {"gen_state": state, "q_raw": q_raw, "hits": corpus_hits(one, q_raw, k)}
+        del one
+        if on_card:
+            torch.cuda.empty_cache()
+    gen.set_state(phase6["gen_state"])
+    mesh_a = make_mesh(dev, 1, 4)
+    corpus = CorpusVectorStore(D_MAIN, mesh=mesh_a)
+    t0 = time.perf_counter()
+    build_corpus(corpus, gen, dev, seg_rows, sizes["corpus_chunk"])
+    build_s = seconds(t0)
+    store = corpus._store
+    count = store.count
+    require(count == seg_rows * len(CORPUS_LAYOUT), f"phase 17 (a): {count} rows")
+    q_raw = phase6["q_raw"]
+    reset()
+    hits = corpus_hits(corpus, q_raw, k)
+    launches_a = take("(a)", ("topk", "topk_iv", "topk_mask"))
+    qn = q_raw / np.linalg.norm(q_raw, axis=1, keepdims=True)
+    q_pad = np.zeros((qn.shape[0], store.dim_pad), np.float32)
+    q_pad[:, :D_MAIN] = qn
+    exact_equal = {}
+    for scope, conversations in CORPUS_SCOPES.items():
+        # The plain versions of each shard's scan (the whole shard, masked
+        # by the scope's intervals), offset, then one stable sort.
+        table = None if conversations is None else corpus._segment_intervals(set(conversations))
+        parts_v, parts_i = [], []
+        for s, rows in enumerate(store.shard_rows(0)):
+            offset = s * store.local_n
+            local = max(0, min(count - offset, store.local_n))
+            if not local:
+                continue
+            q_s = torch.from_numpy(q_pad).to(rows.device)
+            if table is None:
+                v, i = topk.topk_plain(rows, q_s, local, k)
+            else:
+                iv = torch.from_numpy(np.clip(table - offset, 0, store.local_n).astype(np.int32)).to(rows.device)
+                mask = topk.intervals_to_rowmask(store.local_n, iv)[0].contiguous()
+                v, i = topk.topk_masked_plain(rows, q_s, local, mask, k)
+            parts_v.append(v.to(dev))
+            parts_i.append(torch.where(i >= 0, i + offset, -1).to(dev))
+        v, i = torch.cat(parts_v, dim=1), torch.cat(parts_i, dim=1)
+        order = torch.sort(v, dim=1, descending=True, stable=True).indices[:, :k]
+        vals, idx = (t.cpu().numpy() for t in topk._raw_to_score(v.gather(1, order), i.gather(1, order)))
+        for r, row in enumerate(hits[scope]):
+            keep = idx[r] >= 0
+            close_up_to_ties(row, list(zip(idx[r][keep].tolist(), vals[r][keep].tolist())), TOL_F32,
+                             f"phase 17 (a) {scope} query {r} vs plain")
+            close_up_to_ties(row, phase6["hits"][scope][r], TOL_F32, f"phase 17 (a) {scope} query {r} vs phase 6")
+        exact_equal[scope] = hits[scope] == phase6["hits"][scope]
+    out["a_corpus"] = {
+        "mesh": shape_of(mesh_a), "rows": count, "local_rows": store.local_n, "b": qn.shape[0], "k": k,
+        "build_s": build_s, "launches": launches_a, "bits_equal_to_phase6": exact_equal,
+        "ms_per_batch": {scope: timed_ms(lambda c=c: corpus.search(q_raw, k=k, conversations=c))
+                         for scope, c in CORPUS_SCOPES.items()},
+        "stage_s": seconds(t_stage),
+    }
+    del corpus, store, hits  # no cycles hold them: freed here, with no gc pass
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) a 1M x 384 f32 store on (dp=2, shard=2): the dp split's answers
+    # are the one-device store's.
+    t_stage = time.perf_counter()
+    n, b = sizes["store_rows"], sizes["store_b"]
+    gen.manual_seed(SEED + 171)
+    rows = torch.nn.functional.normalize(torch.randn((n, D_MAIN), generator=gen, device=dev), dim=1)
+    mesh_b = make_mesh(dev, 2, 2)
+    one = ShardedVectorStore(D_MAIN, device=dev)
+    dp_store = ShardedVectorStore(D_MAIN, mesh=mesh_b)
+    for s in (one, dp_store):
+        s.reserve(n)
+        s.append_device(rows)
+    q = normed(rng, b, D_MAIN)
+    reset()
+    got = dp_store.search(q, k)
+    launches_b = take("(b)", ("topk",))
+    want = one.search(q, k)
+    for r in range(b):
+        close_up_to_ties(got[r], want[r], TOL_F32, f"phase 17 (b) query {r}")
+    out["b_store"] = {"mesh": shape_of(mesh_b), "rows": n, "b": b, "k": k, "launches": launches_b,
+                      "bits_equal_to_one_device": got == want,
+                      "ms_per_batch": timed_ms(lambda: dp_store.search(q, k)),
+                      "one_device_ms_per_batch": timed_ms(lambda: one.search(q, k)),
+                      "stage_s": seconds(t_stage)}
+    del one, dp_store
+
+    # (c) the same rows as a bf16 store on (1, 4), saved and restored on
+    # (2, 2) and (1, 1): identical answers.
+    t_stage = time.perf_counter()
+    mesh_c = make_mesh(dev, 1, 4)
+    bf16 = ShardedVectorStore(D_MAIN, dtype="bfloat16", mesh=mesh_c)
+    bf16.reserve(n)
+    bf16.append_device(rows)
+    del rows
+    reset()
+    want = bf16.search(q, k)
+    launches_c = take("(c)", ("topk",))
+    restored_out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        save_sharded_store(bf16, path)
+        save_s = seconds(t0)
+        state_bytes = sum(os.path.getsize(os.path.join(path, "state", f)) for f in os.listdir(os.path.join(path, "state")))
+        require(state_bytes >= n * D_MAIN * 2 and state_bytes < n * D_MAIN * 2 * 1.01,
+                f"phase 17 (c): {state_bytes} bytes saved for {n} bf16 rows")
+        for shape in ((2, 2), (1, 1)):
+            t0 = time.perf_counter()
+            restored = restore_sharded_store(make_mesh(dev, *shape), path)
+            restore_s = seconds(t0)
+            again = restored.search(q, k)
+            if on_card:  # every shard's K1 sums a row in one order, whatever the layout
+                require(again == want, f"phase 17 (c): restored on {shape} answers otherwise")
+            else:  # the CPU's plain matmul rounds by operand shape
+                for r in range(b):
+                    close_up_to_ties(again[r], want[r], TOL_BF16, f"phase 17 (c) restored on {shape} query {r}")
+            restored_out[f"{shape[0]}x{shape[1]}"] = {"restore_s": restore_s, "mesh": shape_of(restored.mesh)}
+            del restored
+    out["c_checkpoint"] = {"saved_from": shape_of(mesh_c), "rows": n, "dtype": "bfloat16", "save_s": save_s,
+                           "state_bytes": state_bytes, "restored": restored_out, "answers_identical": on_card,
+                           "launches": launches_c, "stage_s": seconds(t_stage)}
+    del bf16
+
+    # (d) ConversationCorpus on the mesh: two conversations, global and
+    # scoped search_text, a refresh, save / load; held to one device.
+    t_stage = time.perf_counter()
+    n_conv, more = sizes["conv_messages"], sizes["conv_more"]
+    raw_a = make_corpus(SEED + 172, n_conv, vocab=CONV_VOCAB, speakers=CONV_SPEAKERS)
+    raw_b = make_corpus(SEED + 173, n_conv + more, vocab=CONV_VOCAB, speakers=CONV_SPEAKERS)
+    settings_device = str(dev)
+    conv_a, _ = await ingest(create_conversation, port_settings(D_MAIN, settings_device), ConversationMessage,
+                             ConversationMessageMeta, raw_a, 1)
+    conv_b, _ = await ingest(create_conversation, port_settings(D_MAIN, settings_device), ConversationMessage,
+                             ConversationMessageMeta, raw_b[:n_conv], 1)
+    mesh_d = make_mesh(dev, 1, 4)
+    on_mesh = ConversationCorpus(dim=D_MAIN, mesh=mesh_d)
+    on_one = ConversationCorpus(dim=D_MAIN, device=dev)
+    for corpus in (on_mesh, on_one):
+        await corpus.add_conversation("a", conv_a)
+        await corpus.add_conversation("b", conv_b)
+    texts = [raw_a[int(i)]["text"] for i in rng.integers(0, n_conv, sizes["conv_searches"] // 2)]
+    texts += [raw_b[int(i)]["text"] for i in rng.integers(0, n_conv, sizes["conv_searches"] // 2)]
+
+    async def corpus_search(corpus) -> list:
+        found = []
+        for text in texts:
+            for scope in (None, ["b"]):
+                row = await corpus.search_text(text, k=k, conversations=scope)
+                found.append([((h.conversation, h.message_ordinal, h.chunk_ordinal), h.score) for h in row])
+        return found
+
+    def same_hits(a: list, b: list, what: str) -> None:
+        for r, (x, y) in enumerate(zip(a, b, strict=True)):
+            close_up_to_ties(x, y, TOL_F32, f"phase 17 (d) {what} search {r}")
+
+    reset()
+    first = await corpus_search(on_mesh)
+    launches_d = take("(d)", ("topk", "topk_iv"))
+    same_hits(first, await corpus_search(on_one), "before the refresh")
+    require(all(row and row[0][1] > 0.999 for row in first[::2]), "phase 17 (d): a message did not find itself")
+    await conv_b.add_messages_with_indexing(to_messages(raw_b[n_conv:], ConversationMessage, ConversationMessageMeta))
+    t0 = time.perf_counter()
+    refreshed = await on_mesh.refresh()
+    refresh_s = seconds(t0)
+    require(refreshed == more and await on_one.refresh() == more, f"phase 17 (d): refresh appended {refreshed}")
+    texts += [raw_b[n_conv + int(i)]["text"] for i in rng.integers(0, more, 2)]
+    after = await corpus_search(on_mesh)
+    same_hits(after, await corpus_search(on_one), "after the refresh")
+    require(after[-2][0][0][0] == "b" and after[-2][0][0][1] >= n_conv, "phase 17 (d): a new message not found")
+    loaded_out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mirror")
+        t0 = time.perf_counter()
+        on_mesh.save(path)
+        save_s = seconds(t0)
+        for name, mesh in (("2x2", make_mesh(dev, 2, 2)), ("one_device", None)):
+            t0 = time.perf_counter()
+            loaded = ConversationCorpus.load(path, mesh=mesh, device=dev)
+            load_s = seconds(t0)
+            await loaded.add_conversation("a", conv_a)  # the embedder; rows resume from the watermarks
+            await loaded.add_conversation("b", conv_b)
+            require(await loaded.refresh() == 0, "phase 17 (d): a loaded mirror appended rows again")
+            same_hits(await corpus_search(loaded), after, f"the mirror loaded on {name}")
+            loaded_out[name] = {"load_s": load_s}
+    out["d_conversation_corpus"] = {
+        "mesh": shape_of(mesh_d), "conversations": 2, "messages": [n_conv, n_conv + more],
+        "searches": len(texts) * 2, "launches": launches_d, "refresh_rows": refreshed, "refresh_s": refresh_s,
+        "save_s": save_s, "loaded": loaded_out, "equal_to_one_device": True, "stage_s": seconds(t_stage),
+    }
+    del on_mesh, on_one, conv_a, conv_b
+
+    # (e) phase 12's conversation with a dp = 2 engine mesh: the 16
+    # questions' stage 3 equals the one-device engine's.
+    t_stage = time.perf_counter()
+    if conv_ctx is None:
+        raw = make_corpus(SEED, sizes["engine_messages"], vocab=CONV_VOCAB, speakers=CONV_SPEAKERS)
+        conv, _ = await ingest(create_conversation, port_settings(D_MAIN, settings_device), ConversationMessage,
+                               ConversationMessageMeta, raw, 1)
+        conv_ctx = {"conv": conv, "raw": raw}
+    conv, raw = conv_ctx["conv"], conv_ctx["raw"]
+    questions = make_questions(raw, SEED + 13)
+    texts = list(questions)
+    use_canned(conv, questions)
+    await ask(conv, texts, searchlang)  # a pass that syncs the engine if it has not synced
+    single = await ask(conv, texts, searchlang)
+    executor = conv._device_executor
+    mesh_e = make_mesh(dev, 2, 1)
+    conv._device_mesh = executor.mesh = mesh_e  # the synced engine takes the mesh
+    dp0 = executor._postings.dp_calls
+    reset()
+    try:
+        dp = await ask(conv, texts, searchlang)
+    finally:
+        conv._device_mesh = executor.mesh = None
+    take("(e)", ())
+    dp_calls = executor._postings.dp_calls - dp0
+    require(dp_calls > 0, "phase 17 (e): no call went data parallel")
+    require(set(dp["routes"]) == {"device"} == set(single["routes"]), f"phase 17 (e): routes {dp['routes']}")
+    require(dp["results"] == single["results"], "phase 17 (e): stage 3 on the dp mesh differs from one device")
+    require(dp["answers"] == single["answers"], "phase 17 (e): answers on the dp mesh differ")
+    out["e_engine"] = {
+        "mesh": shape_of(mesh_e), "messages": len(raw), "questions": len(texts), "kinds": list(QUESTION_KINDS),
+        "dp_calls": dp_calls, "stage3_equal": True, "answers_equal": True,
+        "stage3_ms_dp": round(sum(dp["stage3_ms"]), 3), "stage3_ms_one_device": round(sum(single["stage3_ms"]), 3),
+        "query_ms_p50_dp": round(float(np.median(dp["ms"])), 3),
+        "query_ms_p50_one_device": round(float(np.median(single["ms"])), 3),
+        "stage_s": seconds(t_stage),
+    }
+
+    # (f) sharded IVF over shard = 4 on phase 9's clustered rows, beside
+    # the one-device IVF; every certified answer is the exact top-k, and
+    # the sharded recall against the exact oracle keeps up with one device's.
+    t_stage = time.perf_counter()
+    if ivf_gen_state is not None:
+        gen.set_state(ivf_gen_state)
+    else:
+        gen.manual_seed(SEED + 9)
+    n_ivf, n_q = sizes["ivf_rows"], sizes["ivf_queries"]
+    rows, q_host = clustered_rows(gen, dev, n_ivf, sizes["ivf_topics"], n_q)
+    mesh_f = make_mesh(dev, 1, 4)
+    rpc = sizes["ivf_rows_per_cluster"]
+    stores = {"one_device": (ShardedVectorStore(D_MAIN, dtype="bfloat16", search_mode="ivf", device=dev), rpc),
+              # Each shard as many clusters as the one-device build: rows per
+              # cluster over the shard count.
+              "sharded": (ShardedVectorStore(D_MAIN, dtype="bfloat16", search_mode="ivf", mesh=mesh_f), rpc // 4)}
+    for s, _ in stores.values():
+        s.reserve(n_ivf)
+        s.append_device(rows)
+    del rows
+    one = stores["one_device"][0]
+    batches = [q_host[s0 : s0 + 256] for s0 in range(0, n_q, 256)]
+    oracle = [row for qb in batches for row in one.search(qb, k)]  # exact: no snapshot yet
+    ivf_out = {}
+    for name, (s, per_cluster) in stores.items():
+        t0 = time.perf_counter()
+        s.build_ivf(rows_per_cluster=per_cluster, outlier_frac=0.03)
+        build_s = seconds(t0)
+        if name == "sharded":
+            reset()
+        res, certs = [], []
+        for qb in batches:
+            r, c = s.search_ivf(qb, k)
+            res += r
+            certs += c
+        if name == "sharded":
+            launches_f = take("(f)", ("rescore",))
+        hit = sum(len({i for i, _ in got} & {i for i, _ in ref}) for got, ref in zip(res, oracle))
+        for r, (got, ref, cert) in enumerate(zip(res, oracle, certs)):
+            if cert:
+                close_up_to_ties(got, ref, TOL_BF16, f"phase 17 (f) {name} certified query {r}")
+        ivf_out[name] = {"build_s": build_s, "rows_per_cluster": per_cluster, "recall": hit / (k * n_q),
+                         "certified": float(np.mean(certs)),
+                         "ms_per_batch256": timed_ms(lambda s=s: s.search_ivf(batches[0], k))}
+    require(ivf_out["sharded"]["recall"] >= ivf_out["one_device"]["recall"] - IVF_SHARD_RECALL_MARGIN,
+            f"phase 17 (f): sharded IVF recall {ivf_out['sharded']['recall']} trails the one-device "
+            f"build's {ivf_out['one_device']['recall']} by more than {IVF_SHARD_RECALL_MARGIN}")
+    out["f_sharded_ivf"] = {"mesh": shape_of(mesh_f), "rows": n_ivf, "topics": sizes["ivf_topics"], "queries": n_q,
+                            "b": 256, "k": k, "B": stores["sharded"][0].ivf_b, "launches": launches_f, **ivf_out,
+                            "stage_s": seconds(t_stage)}
+    del stores, one
+    if on_card:
+        torch.cuda.empty_cache()
+    out["launches"] = {name: n for name, n in counts.items() if n}
+    out["phase_s"] = round(time.perf_counter() - t_phase, 3)
+    out["ok"] = True
+    return out, counts
+
+
 def main() -> int:
     import argparse
 
@@ -1930,6 +2424,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description="The port's smoke, on one CUDA card.")
     parser.add_argument("--front-doors", action="store_true", help="build the kernels and run phase 16 alone")
     parser.add_argument("--turns", type=int, default=POD_TURNS, help="phase 16's turns per podcast archive")
+    parser.add_argument("--mesh", action="store_true",
+                        help="build the kernels and run phase 17 alone (its own references)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on the card", file=sys.stderr)
@@ -1948,6 +2444,14 @@ def main() -> int:
         out16, _ = asyncio.run(front_doors_phase(torch.device("cuda", 0), n_turns=args.turns))
         out16.update({"nvidia_smi": smi_line(), "ok": True})
         emit(out16)
+        return 0
+    if args.mesh:
+        print(smi_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _build.kernels()
+        out17, _ = asyncio.run(mesh_phase(torch.device("cuda", 0)))
+        out17.update({"nvidia_smi": smi_line(), "ok": True})
+        emit(out17)
         return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2726,18 +3230,18 @@ def main() -> int:
     del s, store, buf, shadow, ids, rows_dev
 
     # ------------------------------------------- 6-7. the multi-conversation corpus
-    def corpus_phase(phase, dtype, seg_rows, tol, probe_floor, with_subset):
+    def corpus_phase(phase, dtype, seg_rows, tol, probe_floor, with_subset, keep=None):
         """Build the fragmented corpus on the card, drive its searches once
         (the counted main path), then hold each against its kernel and the
-        kernel against its plain version. Returns the phase's line."""
+        kernel against its plain version. Returns the phase's line; ``keep``
+        (a dict) gets the generator state the rows came from, the queries
+        and the hits of the scoped searches, for phase 17."""
         torch.cuda.reset_peak_memory_stats()
         corpus = CorpusVectorStore(D_MAIN, device="cuda", dtype=dtype)
+        if keep is not None:
+            keep["gen_state"] = gen.get_state()
         t0 = time.perf_counter()
-        corpus.reserve(seg_rows * len(CORPUS_LAYOUT))
-        for name in CORPUS_LAYOUT:
-            for done in range(0, seg_rows, CORPUS_CHUNK):
-                step = min(CORPUS_CHUNK, seg_rows - done)
-                corpus.append_device(name, torch.randn((step, D_MAIN), generator=gen, device=dev))
+        build_corpus(corpus, gen, dev, seg_rows, CORPUS_CHUNK)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         store = corpus._store
@@ -2757,7 +3261,7 @@ def main() -> int:
         q_dev[:, :D_MAIN] = to_dev(qn)
         subset = rng.choice(count, 100_000, replace=False)
         subset[: len(probes)] = [p[0] for p in probes]
-        scopes = {"global": None, "podcast": ["podcast"], "podcast+wiki": ["podcast", "wiki"]}
+        scopes = dict(CORPUS_SCOPES)
 
         def run_search(scope):
             if scope == "subset":
@@ -2777,6 +3281,10 @@ def main() -> int:
         results = {scope: run_search(scope) for scope in names}
         counts = topk.launch_counts()
         add_path_launches(counts)
+        if keep is not None:
+            keep["q_raw"] = q_raw
+            keep["hits"] = {scope: [[(h.global_ordinal, h.score) for h in row] for row in results[scope]]
+                            for scope in CORPUS_SCOPES}
         require(counts["materialized_topk"] == 0, f"corpus {dtype}: k > 32 materialized route")
         n_rows = emb.shape[0]
         out = {"phase": phase, "rows": count, "dtype": dtype, "segments": len(CORPUS_LAYOUT),
@@ -2880,7 +3388,8 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
-    emit(corpus_phase(6, "float32", CORPUS_F32_SEG_ROWS, TOL_F32, 1 - 1e-6, True))
+    phase6: dict = {}  # phase 17 builds the same corpus on a mesh and holds it to these hits
+    emit(corpus_phase(6, "float32", CORPUS_F32_SEG_ROWS, TOL_F32, 1 - 1e-6, True, keep=phase6))
     gc.collect()  # the f32 corpus is gone before the int8 one is built
     torch.cuda.empty_cache()
     emit(corpus_phase(7, "int8", CORPUS_INT8_SEG_ROWS, TOL_INT8, 0.999, False))
@@ -2999,24 +3508,7 @@ def main() -> int:
 
     # ---------------------------------------- 9. IVF on the clustered corpus
     def clustered(n: int, topics: int, n_queries: int):
-        """bench.py section B's corpus on the card: unit rows around
-        ``topics`` unit centres (sigma 0.35 / sqrt(d) per coordinate), 2%
-        isotropic background, bf16; topic queries made the same way and
-        rounded to bf16, so the exact1 oracle (which scores bf16 queries
-        on a bf16 store) and the rescore (f32 queries) score one query."""
-        centers = torch.nn.functional.normalize(torch.randn((topics, D_MAIN), generator=gen, device=dev), dim=1)
-        out = torch.empty((n, D_MAIN), dtype=torch.bfloat16, device=dev)
-        for s0 in range(0, n, IVF_CHUNK):
-            m = min(IVF_CHUNK, n - s0)
-            lab = torch.randint(0, topics, (m,), generator=gen, device=dev)
-            e = centers[lab] + SIGMA_C * torch.randn((m, D_MAIN), generator=gen, device=dev) / D_MAIN ** 0.5
-            bg = torch.rand((m,), generator=gen, device=dev) < BG_C
-            e = torch.where(bg[:, None], torch.randn((m, D_MAIN), generator=gen, device=dev), e)
-            out[s0 : s0 + m] = torch.nn.functional.normalize(e, dim=1).to(torch.bfloat16)
-        lab = torch.randint(0, topics, (n_queries,), generator=gen, device=dev)
-        q = centers[lab] + SIGMA_C * torch.randn((n_queries, D_MAIN), generator=gen, device=dev) / D_MAIN ** 0.5
-        q = torch.nn.functional.normalize(q, dim=1).to(torch.bfloat16).float()
-        return out, q.cpu().numpy()
+        return clustered_rows(gen, dev, n, topics, n_queries)
 
     def oracle(buf, count, q_host):
         """exact1 (K1 over the store) for every 256-query batch."""
@@ -3179,6 +3671,7 @@ def main() -> int:
                 "appended": n // 10, "suffix": suffix, "rebuild_s": round(rebuild_s, 3)}
 
     out9 = {"phase": 9, "b": 256, "k": K_MAIN, "outlier_frac": 0.03, "rows_per_cluster": 512}
+    ivf_gen_state = gen.get_state()  # the 1M rows' source, for phase 17
     for (n, topics), full in zip(IVF_SCALES, (True, False)):
         out9[f"{n / 1e6:g}M"] = ivf_scale(n, topics, full)
         gc.collect()
@@ -3334,7 +3827,7 @@ def main() -> int:
                "ingest_s": out12["ingest_s"], "messages_per_s": out12["messages_per_s"],
                "related_terms": set(memory_terms), "related_terms_rows": len(memory_terms)}
     out15, counts15 = asyncio.run(sqlite_phase(dev, raw, phase13))
-    del conv, raw, seq13, phase13, memory_terms
+    del seq13, phase13, memory_terms  # phase 17 asks the conversation again
     add_path_launches(counts15)
     out15.update({"nvidia_smi": smi_line(), "ok": True})
     emit(out15)
@@ -3347,6 +3840,18 @@ def main() -> int:
     add_path_launches(counts16)
     out16.update({"nvidia_smi": smi_line(), "ok": True})
     emit(out16)
+
+    # 17. the multi-device layer: meshes, row-sharded stores, sharded IVF,
+    # checkpoints across mesh shapes, the engine's dp dispatch. (No gc pass:
+    # phase 12's conversation is still alive, and a pass over its millions
+    # of objects costs seconds.)
+    torch.cuda.empty_cache()
+    out17, counts17 = asyncio.run(mesh_phase(dev, phase6=phase6, ivf_gen_state=ivf_gen_state,
+                                             conv_ctx={"conv": conv, "raw": raw}))
+    del conv, raw
+    add_path_launches(counts17)
+    out17.update({"nvidia_smi": smi_line(), "ok": True})
+    emit(out17)
 
     # --------------------------------------------------------------- summary
     for name in ENTRIES:

@@ -1,11 +1,11 @@
 """``ConversationCorpus`` of the port (``parallel/conversation_corpus.py``)
 against the JAX package's.
 
-The corpus tests of ``tests/test_mesh_conversation.py`` run against the
-port through ``test_torch_query_suites.mirror`` on one CPU device: the
-suite's ``mesh`` fixture is None here and its corpora take
-``device="cpu"``. Its mesh tests and the checkpoint test stand in
-:data:`EXCLUDED` with their reasons.
+The tests of ``tests/test_mesh_conversation.py`` run against the port
+through ``test_torch_query_suites.mirror`` on a (dp=2, shard=4) mesh of
+CPU devices (the JAX suite's 8 virtual CPU devices): conversations whose
+embedding indexes ride the row-sharded store, held to the one-device
+store, and the corpus on the mesh, its checkpoint and resume included.
 
 Then each package builds a corpus over the same three conversations from
 the same seed-made messages (``test_torch_conv_corpus.make_corpus``, the
@@ -22,6 +22,7 @@ import asyncio
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_conv_corpus import WordExtractor, ingest, make_corpus, make_questions, port_settings, to_messages
 from test_torch_query_suites import check_mirrored, mirror
@@ -40,19 +41,11 @@ from typeagent_tpu_torch import create_conversation
 from typeagent_tpu_torch.knowpro import answers, searchlang
 from typeagent_tpu_torch.knowpro.universal_message import ConversationMessage, ConversationMessageMeta
 from typeagent_tpu_torch.models.canned import CannedChatModel
-from typeagent_tpu_torch.parallel import ConversationCorpus
+from typeagent_tpu_torch.knowpro.interfaces import TextLocation
+from typeagent_tpu_torch.parallel import ConversationCorpus, create_mesh
 
-_MESH = "a device mesh (ROADMAP.md Queue 1 item 9): the port's corpus runs on one device"
 SUITES = ("test_mesh_conversation.py",)
-EXCLUDED = {
-    ("test_mesh_conversation.py", "test_mesh_conversation_matches_single_chip"): _MESH,
-    ("test_mesh_conversation.py", "test_conversation_settings_mesh_propagates"): _MESH,
-    ("test_mesh_conversation.py", "test_mesh_store_message_reindex_and_subset"): _MESH,
-    ("test_mesh_conversation.py", "test_conversation_corpus_checkpoint_resume"): (
-        "ConversationCorpus.save / load need parallel/checkpoint.py (orbax in the JAX package), "
-        "not ported yet (ROADMAP.md Queue 1 item 9)"
-    ),
-}
+EXCLUDED: dict = {}
 DROPPED = {"test_mesh_conversation.py": ("from typeagent_tpu.parallel import create_mesh",)}
 REWRITE = {"test_mesh_conversation.py": (
     ("ConversationCorpus(dim=24, mesh=mesh)", 'ConversationCorpus(dim=24, mesh=mesh, device="cpu")'),
@@ -60,10 +53,10 @@ REWRITE = {"test_mesh_conversation.py": (
 MIRRORED = mirror(SUITES, EXCLUDED, globals(), DROPPED, REWRITE)
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def mesh():
-    """One device: the port's corpus takes no mesh."""
-    return None
+    """The suite's (dp=2, shard=4) mesh, on the CPU."""
+    return create_mesh(n_shard=4, n_dp=2, devices=[torch.device("cpu")] * 8)
 
 
 def test_every_corpus_test_is_mirrored_or_excluded():
@@ -186,10 +179,20 @@ def test_query_all_matches(corpora):
 
 
 def test_mesh_and_checkpoints_name_item_9(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """The mesh and checkpoints that ROADMAP.md Queue 1 item 9 ported: a
+    corpus on a (2, 2) mesh saves and loads onto one device and onto a
+    (1, 4) mesh with the same hits; a non-mesh is refused."""
+    with pytest.raises(TypeError, match="Mesh"):
         ConversationCorpus(dim=D, mesh=object(), device="cpu")
-    corpus = ConversationCorpus(dim=D, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        corpus.save(tmp_path / "mirror")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ConversationCorpus.load(tmp_path / "mirror")
+    corpus = ConversationCorpus(dim=D, mesh=create_mesh(n_shard=2, n_dp=2, devices=[torch.device("cpu")] * 4))
+    rng = np.random.default_rng(3)
+    corpus._store.append("a", rng.standard_normal((300, D)).astype(np.float32))
+    corpus._locations["a"] = [TextLocation(i, 0) for i in range(300)]
+    q = rng.standard_normal(D).astype(np.float32)
+    want = corpus.search_embedding(q, k=5)
+    corpus.save(tmp_path / "mirror")
+    one = ConversationCorpus.load(tmp_path / "mirror", device="cpu")
+    four = ConversationCorpus.load(
+        tmp_path / "mirror", mesh=create_mesh(n_shard=4, devices=[torch.device("cpu")] * 4))
+    assert one.search_embedding(q, k=5) == four.search_embedding(q, k=5) == want
+    assert four._store._store.n_shard == 4 and one._store._store.n_shard == 1

@@ -1,7 +1,8 @@
 """Parity: the port's multi-conversation corpus store
 (``typeagent_tpu_torch/parallel``) against the JAX package's
 ``CorpusVectorStore``, on a 1-shard mesh and on the 8 virtual CPU devices
-(4 shards x 2 data-parallel), with the same appends.
+(4 shards x 2 data-parallel), with the same appends; the port's corpus
+runs on the same mesh shape of CPU devices.
 
 The layout is the repo's 10M-fragment probe's fragmented one cut down: 24
 interleaved segments of 64 rows over three conversations, dim 32. Scoping
@@ -23,6 +24,7 @@ from typeagent_tpu.parallel import create_mesh
 from typeagent_tpu.parallel.corpus import CorpusVectorStore as JaxCorpus
 from typeagent_tpu_torch.ops import topk
 from typeagent_tpu_torch.parallel import CorpusVectorStore, ShardedVectorStore
+from typeagent_tpu_torch.parallel import create_mesh as port_create_mesh
 
 DIM = 32
 SEG_ROWS = 64
@@ -36,6 +38,12 @@ def _mesh(name):
     if name == "1x1":
         return create_mesh(n_shard=1, n_dp=1, devices=jax.devices()[:1])
     return create_mesh(n_shard=4, n_dp=2)
+
+
+def _port_mesh(name):
+    if name == "1x1":
+        return None  # the one-device corpus
+    return port_create_mesh(n_shard=4, n_dp=2, devices=[torch.device("cpu")] * 8)
 
 
 def _segments(seed=5):
@@ -70,7 +78,7 @@ def _corpora(mesh_name, dtype):
     """(port, jax) corpora over the same appends, built once per module."""
     key = (mesh_name, dtype)
     if key not in _BUILT:
-        port = CorpusVectorStore(DIM, device="cpu", dtype=dtype)
+        port = CorpusVectorStore(DIM, device="cpu", dtype=dtype, mesh=_port_mesh(mesh_name))
         ref = JaxCorpus(DIM, mesh=_mesh(mesh_name), dtype=_jax_dtype(dtype))
         for name, rows in _segments():
             port.append(name, rows)
@@ -270,7 +278,13 @@ def test_reserve_and_growth_pad_scales_with_one():
 
 
 def test_unported_settings_name_their_roadmap_item(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """The settings ROADMAP.md Queue 1 item 9 ported (a mesh) are taken and
+    only a non-mesh is refused; approx and IVF are taken, int8 refused as
+    in JAX; the default device raises without a card."""
+    mesh = port_create_mesh(n_shard=2, devices=[torch.device("cpu")] * 2)
+    corpus = CorpusVectorStore(DIM, mesh=mesh)
+    assert corpus.mesh is mesh and corpus._store.n_shard == 2 and corpus.device == torch.device("cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         CorpusVectorStore(DIM, device="cpu", mesh=object())
     for mode in ("approx", "ivf"):  # ported: accepted, int8 refused as in JAX
         assert CorpusVectorStore(DIM, device="cpu", search_mode=mode)._store.search_mode == mode

@@ -21,6 +21,7 @@ behaviour held on the port's single sorted pass, the knob taken out.
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_query_suites import check_mirrored, mirror
 
@@ -30,11 +31,6 @@ SUITES = (
     "test_device_vm_differential.py",
     "test_nl_device_coverage.py",
     "test_engine_batcher.py",
-)
-_MESH = (
-    "runs the COO route over a data-parallel mesh (lookup_ops_sparse_dp); the "
-    "port's engine runs on one device and the mesh forms raise naming ROADMAP.md "
-    "Queue 1 item 9"
 )
 _KNOBS = (
     "sets or reads a TPU knob the port does not have (_COMPACT_CAP, "
@@ -57,11 +53,11 @@ ADAPTED = (
     ("test_device_vm_differential.py", "test_differential_compact_no_overflow"),
     ("test_device_vm_differential.py", "test_differential_through_sparse_union_combine"),
     ("test_device_vm_differential.py", "test_differential_under_tiny_device_budgets"),
+    ("test_postings.py", "test_coo_sparse_dp_matches_single"),
+    ("test_postings.py", "test_coo_sparse_dp_single_rank_delegates"),
 )
 EXCLUDED = {
     **{name: _KNOBS for name in ADAPTED},
-    ("test_postings.py", "test_coo_sparse_dp_matches_single"): _MESH,
-    ("test_postings.py", "test_coo_sparse_dp_single_rank_delegates"): _MESH,
     ("test_device_executor.py", "test_dropped_plan_falls_back_to_host"): (
         "asserts that a plan _run_plan_group drops (too large even alone) is "
         "answered by the host VM; the port's guard decides packing only, a "
@@ -317,3 +313,48 @@ async def test_device_executor__test_dropped_plan_falls_back_to_host(monkeypatch
     assert tiny.keys() == free.keys()
     for ktype in free:
         assert tiny[ktype].semantic_ref_matches == free[ktype].semantic_ref_matches
+
+
+def _cpu_mesh(n_shard: int, n_dp: int):
+    from typeagent_tpu_torch.parallel import create_mesh
+
+    return create_mesh(n_shard=n_shard, n_dp=n_dp, devices=[torch.device("cpu")] * (n_shard * n_dp))
+
+
+def test_postings__test_coo_sparse_dp_matches_single():
+    """Adapted (no _SPARSE_MIN_CAP; the mesh on CPU devices): the COO
+    route over a (dp=4, shard=2) mesh reproduces the one-call result:
+    segments split over the ranks, postings replicated, global segment
+    numbering reassembled."""
+    rng = np.random.default_rng(13)
+    index, ops, ktype = _random_ops_setup(rng)
+    tid0 = ops[0][0]
+    ops.append((tid0, 1.0, 1, P.OP_BOOST, 0, -1, 0))
+    scope = np.zeros(len(ktype), dtype=bool)
+    scope[: len(ktype) // 2] = True
+    ops.append((ops[5][0], 1.5, 3, P.OP_RELATED, 31, -1, 1))
+    scopes = [None, scope]
+    single = index.lookup_ops_sparse(ops, 4, ktype, scopes, boost_factor=10.0)
+    dp = index.lookup_ops_sparse_dp(ops, 4, ktype, scopes, boost_factor=10.0, mesh=_cpu_mesh(2, 4))
+    assert single is not None and dp is not None and index.dp_calls == 1
+    cols_s, packed_s, counts_s, oh_s = single
+    cols_d, packed_d, counts_d, oh_d = dp
+    np.testing.assert_array_equal(counts_d, counts_s)
+    np.testing.assert_array_equal(oh_d, oh_s)
+    for s in range(4):
+        c = counts_s[s]
+        np.testing.assert_array_equal(cols_d[s, :c], cols_s[s, :c])
+        np.testing.assert_array_equal(packed_d[:, s, :c], packed_s[:, s, :c])
+
+
+def test_postings__test_coo_sparse_dp_single_rank_delegates():
+    """Adapted (no _SPARSE_MIN_CAP): a dp=1 mesh, or None, is the one-call
+    route."""
+    rng = np.random.default_rng(14)
+    index, ops, ktype = _random_ops_setup(rng)
+    single = index.lookup_ops_sparse(ops, 4, ktype)
+    for mesh in (_cpu_mesh(8, 1), None):
+        dp = index.lookup_ops_sparse_dp(ops, 4, ktype, mesh=mesh)
+        for a, b in zip(dp, single):
+            np.testing.assert_array_equal(a, b)
+    assert index.dp_calls == 0

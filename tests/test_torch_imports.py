@@ -14,7 +14,7 @@ import sys
 import pytest
 
 PKG = pathlib.Path(__file__).resolve().parent.parent / "typeagent_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "pydantic", "httpx", "typeagent_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "pydantic", "httpx", "orbax", "typeagent_tpu")
 MODULES = sorted(
     ".".join(p.relative_to(PKG.parent).with_suffix("").parts)
     for p in PKG.rglob("*.py")
@@ -59,6 +59,10 @@ def test_package_has_the_slice_modules():
         "typeagent_tpu_torch.ops.ivf",
         "typeagent_tpu_torch.parallel.ivf",
         "typeagent_tpu_torch.ops.int4",
+        "typeagent_tpu_torch.parallel.mesh",
+        "typeagent_tpu_torch.parallel.checkpoint",
+        "typeagent_tpu_torch.parallel.multislice",
+        "typeagent_tpu_torch.parallel.conversation_corpus",
     ):
         assert name in MODULES
 

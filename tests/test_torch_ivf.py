@@ -789,7 +789,7 @@ def test_sharded_ivf_on_the_jax_index_matches_jax():
     ref.build_ivf(rows_per_cluster=128, train_rows=1024, iters=3, outlier_frac=0.05)
     port._flush()
     state = ivf.adopt_ivf_state(_jax_state_arrays(ref._ivf.device_arrays), "cpu")
-    port._ivf = ShardedIVF((state,), ref._ivf.local_n, ref._ivf.built_count)
+    port._ivf = ShardedIVF(((state,),), ref._ivf.local_n, ref._ivf.built_count)
     q = torch.from_numpy(emb[rng.choice(2600, 8, replace=False)]).bfloat16().float().numpy()
     for stage in ("snapshot", "suffix"):
         if stage == "suffix":
@@ -814,8 +814,8 @@ def test_sharded_ivf_build_search_and_certificates():
         store.search_ivf(emb[:2], k=5)  # no snapshot yet
     pre = store.search(emb[:4], k=5)  # exact until a build
     store.build_ivf(rows_per_cluster=128, train_rows=2048, iters=4, outlier_frac=0.05)
-    assert store._ivf.built_count == 3000 and len(store._ivf.states) == 1
-    _check_state(store._ivf.states[0], 3000)
+    assert store._ivf.built_count == 3000 and len(store._ivf.states) == len(store._ivf.states[0]) == 1
+    _check_state(store._ivf.states[0][0], 3000)
     assert [r[0][0] for r in store.search(emb[:4], k=5)] == [r[0][0] for r in pre] == [0, 1, 2, 3]
     q = _unit(centers[rng.integers(0, 16, 12)] + 0.02 * rng.standard_normal((12, d)).astype(np.float32))
     res, certs = store.search_ivf(q, k=5)

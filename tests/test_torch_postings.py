@@ -315,11 +315,35 @@ def test_same_bits_twice(seed):
 
 
 def test_mesh_forms_raise_naming_item_9():
-    _, _, _, port_index, ktype = _indexes(3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_index.lookup_ops_sparse_dp([], 1, ktype, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        T.accumulate_postings_segmented_coo_dp()
+    """The data-parallel forms that ROADMAP.md Queue 1 item 9 ported:
+    ``lookup_ops_sparse_dp`` on a (dp=4, shard=2) mesh of CPU devices
+    against the JAX form on its 8 virtual CPU devices, and
+    ``accumulate_postings_segmented_coo_dp`` against one call per rank."""
+    from typeagent_tpu.parallel import create_mesh as jax_create_mesh
+    from typeagent_tpu_torch.parallel import create_mesh
+
+    rng, terms, jax_index, port_index, ktype = _indexes(3)
+    ops = _index_ops(rng, terms, jax_index, 40, 6)
+    scopes = [None, rng.random(len(ktype)) < 0.5]
+    want = jax_index.lookup_ops_sparse_dp(ops, 6, ktype, scopes, 10.0, mesh=jax_create_mesh(n_shard=2, n_dp=4))
+    got = port_index.lookup_ops_sparse_dp(
+        ops, 6, ktype, scopes, 10.0, mesh=create_mesh(n_shard=2, n_dp=4, devices=[torch.device("cpu")] * 8)
+    )
+    assert want is not None and got is not None and port_index.dp_calls == 1
+    np.testing.assert_array_equal(got[2], want[2])  # counts
+    np.testing.assert_array_equal(got[3], want[3])  # op_hit
+    for s, c in enumerate(want[2]):
+        np.testing.assert_array_equal(got[0][s, :c], want[0][s, :c])
+        _close(got[1][:, s, :c], want[1][:, s, :c])
+    arrays, cap, n_seg = _case(3, n_ops=60)
+    one = _torch(arrays, 10.0)
+    statics = dict(semref_cap=cap, n_seg=n_seg, dedup_related=True)
+    single = T._accumulate_runs(*one, **statics)
+    keys, sums, hits = T.accumulate_postings_segmented_coo_dp([(one, statics)] * 2, [0, n_seg])
+    shifted = single.keys + n_seg * (cap + 1)  # the second rank owns the next n_seg segments
+    assert torch.equal(keys, torch.cat([single.keys, shifted]))
+    assert torch.equal(sums, torch.cat([single.sums, single.sums], dim=1))
+    assert all(torch.equal(h, single.op_hit) for h in hits)
 
 
 def test_calls_past_the_key_run_field_refuse():

@@ -7,8 +7,9 @@ auto, read when the options are made; the host vocabulary runs the host VM;
 (``_Unsupported``) runs on the host VM and the conversation notes "host
 (device fallback)". One deliberate departure from the JAX package: an
 exception in the engine propagates and is never answered by the host VM.
-A conversation with a data-parallel ``_device_mesh`` raises naming
-ROADMAP.md Queue 1 item 9. The engine's memory guard decides how queries
+A conversation with a data-parallel ``_device_mesh`` (a mesh of CPU
+devices here) splits each COO call over its dp ranks and answers as one
+device does. The engine's memory guard decides how queries
 pack into calls, never their route: under budgets of one slot and one
 posting a call, ``make_questions``' 16 questions, action scopes included,
 stay on the engine and answer as at the reckoned budgets. Everything runs
@@ -181,15 +182,42 @@ def test_custom_booster_is_unsupported(conv):
     assert asyncio.run(go()) is None
 
 
-def test_device_mesh_raises_naming_item_9(monkeypatch, conv):
-    monkeypatch.setattr(conv, "_device_mesh", object(), raising=False)
-    monkeypatch.setattr(conv, "_device_executor", None, raising=False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        device_executor.DeviceQueryExecutor(conv)
-    # Through the EngineBatcher, which hands its waiters a RuntimeError
-    # naming the engine's error.
-    with pytest.raises((NotImplementedError, RuntimeError), match="item 9"):
-        _run(conv, "single", SearchOptions(use_device_executor=True))
+def test_device_mesh_raises_naming_item_9(monkeypatch):
+    """The engine's data-parallel mesh (ROADMAP.md Queue 1 item 9, ported):
+    with ``_device_mesh`` a (dp=2, shard=1) mesh the 16 questions answer
+    through split calls exactly as on one device, on every route's entry
+    (the single, batch and searchlang entries go through the
+    EngineBatcher)."""
+    import torch
+
+    from typeagent_tpu_torch.knowpro import answers, searchlang
+    from typeagent_tpu_torch.models.canned import CannedChatModel
+    from typeagent_tpu_torch.parallel import create_mesh
+
+    raw = make_corpus(9, 200)
+    questions = make_questions(raw, 4)
+
+    async def ask(mesh):
+        conv = (await port_conversation(raw))[0]
+        conv._device_mesh = mesh
+        model = CannedChatModel(questions)
+        conv._query_translator = searchlang.create_search_query_translator(model)
+        conv._answer_translator = answers.create_answer_translator(model)
+        out = []
+        for question in questions:
+            debug = searchlang.LanguageSearchDebugContext()
+            answer = await conv.query(question, debug_context=debug)
+            results = [(m.message_ordinal, m.score) for r in debug.search_results for m in r.message_matches]
+            out.append((answer, conv._last_engine_route, results))
+        single = await search_conversation_knowledge(conv, GROUP)
+        return out, _scores(single), conv._device_executor
+
+    one, one_single, _ = asyncio.run(ask(None))
+    mesh = create_mesh(n_shard=1, n_dp=2, devices=[torch.device("cpu")] * 2)
+    dp, dp_single, executor = asyncio.run(ask(mesh))
+    assert executor.mesh is mesh and executor._postings.dp_calls > 0
+    assert [route for _, route, _ in dp] == ["device"] * len(QUESTION_KINDS)
+    assert dp == one and dp_single == one_single
 
 
 def test_engine_runs_on_the_conversations_device(conv):

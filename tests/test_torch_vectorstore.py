@@ -360,12 +360,17 @@ def test_settings_refuse_unported_modes_and_missing_device(monkeypatch):
     model = create_test_embedding_model(8)
     for mode in ("approx", "ivf"):  # ported
         assert TextEmbeddingIndexSettings(embedding_model=model, device="cpu", search_mode=mode).search_mode == mode
-    for kw, item in (
-        ({"mesh": object()}, "item 9"),
-        ({"query_wire": "int8", "dtype": "bfloat16"}, "item 7"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            TextEmbeddingIndexSettings(embedding_model=model, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        TextEmbeddingIndexSettings(embedding_model=model, device="cpu", query_wire="int8", dtype="bfloat16")
+    # A mesh (ported): the settings take it and its first device; anything
+    # else raises.
+    from typeagent_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(n_shard=2, devices=[torch.device("cpu")] * 2)
+    settings = TextEmbeddingIndexSettings(embedding_model=model, mesh=mesh)
+    assert settings.mesh is mesh and settings.device == torch.device("cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        TextEmbeddingIndexSettings(embedding_model=model, device="cpu", mesh=object())
     # No model: the default HTTP embedding model from the environment, as
     # in JAX (nothing is requested until an embedding is asked for).
     for name in ("OPENAI_EMBEDDING_MODEL", "OPENAI_API_KEY", "AZURE_OPENAI_API_KEY"):

@@ -33,8 +33,13 @@ TPU gates sent the largest questions of a 150,000-message conversation
 back to the host VM.)
 
 Every tensor is made on the conversation's ``settings.device``, worker
-threads (``TAT_GROUP_THREADS=1``) included. A data-parallel mesh
-(``conversation._device_mesh``) is not ported (ROADMAP.md Queue 1 item 9).
+threads (``TAT_GROUP_THREADS=1``) included. A conversation with a
+``_device_mesh`` (a ``parallel.mesh.Mesh``) runs each COO call data
+parallel, as the JAX engine does: the call's segments split over the
+mesh's dp ranks, each rank's op group on its first device against a
+replica of the postings (``ops/postings.py`` ``lookup_ops_sparse_dp``),
+and the memory guard takes the least of the ranks' cards, reckoned one by
+one.
 """
 
 from __future__ import annotations
@@ -150,10 +155,13 @@ class _Budgets:
     postings: int
 
     @classmethod
-    def reckon(cls, device: torch.device) -> "_Budgets":
+    def reckon(cls, device: torch.device, ranks: tuple[torch.device, ...] = ()) -> "_Budgets":
+        """The budgets of a call on ``device``; with data-parallel
+        ``ranks``, each rank's device is reckoned on its own and the least
+        share bounds the call (a rank may get every posting of it)."""
         keyed = P._RUN_KEYS - 1
         host_share = _MEMORY_SHARE * _free_bytes(torch.device("cpu"))
-        device_share = _MEMORY_SHARE * _free_bytes(device)
+        device_share = _MEMORY_SHARE * min(_free_bytes(d) for d in dict.fromkeys((device, *ranks)))
         return cls(
             _MAX_DENSE_ENTRIES if _MAX_DENSE_ENTRIES is not None else min(int(host_share // _SLOT_BYTES), keyed),
             _MAX_SPARSE_ENTRIES if _MAX_SPARSE_ENTRIES is not None else keyed,
@@ -278,12 +286,11 @@ class DeviceQueryExecutor:
     """Device CSR postings over a conversation's semref + property indexes."""
 
     def __init__(self, conversation: IConversation):
-        if getattr(conversation, "_device_mesh", None) is not None:
-            raise NotImplementedError(
-                "conversation._device_mesh: the engine's data-parallel mesh is not "
-                "ported yet (ROADMAP.md Queue 1 item 9); the engine runs on one device"
-            )
         self.conversation = conversation
+        # Data-parallel mesh for batched plan groups: postings replicate,
+        # each dp rank evaluates a contiguous segment range of the call
+        # (ops/postings.py lookup_ops_sparse_dp). Opt-in per conversation.
+        self.mesh = getattr(conversation, "_device_mesh", None)
         settings = getattr(conversation, "settings", None)
         self.device = torch.device(getattr(settings, "device", "cuda"))
         self._postings = DevicePostingsIndex(self.device)
@@ -294,6 +301,19 @@ class DeviceQueryExecutor:
         # Message-derived scope selectors (action scopes) evaluated by the
         # host selector because the engine could not express them.
         self.host_scope_selectors = 0
+
+    def _budgets(self) -> _Budgets:
+        ranks = () if self.mesh is None else tuple(self.mesh.devices[:, 0])
+        return _Budgets.reckon(self.device, ranks)
+
+    def _lookup_sparse(self, ops, n_seg, scopes, boost_factor):
+        """The COO route: data parallel over the mesh's dp ranks when the
+        conversation has a mesh."""
+        if self.mesh is not None:
+            return self._postings.lookup_ops_sparse_dp(
+                ops, n_seg, self._semref_ktype, scopes, boost_factor, mesh=self.mesh
+            )
+        return self._postings.lookup_ops_sparse(ops, n_seg, self._semref_ktype, scopes, boost_factor)
 
     # -- index sync -------------------------------------------------------------
 
@@ -769,7 +789,7 @@ class DeviceQueryExecutor:
         # message-derived selectors (action scopes) run their term
         # sub-queries on the device when expressible — BATCHED across
         # queries (each device call pays its syncs and download).
-        budgets = _Budgets.reckon(self.device)
+        budgets = self._budgets()
         scopes = await self._batch_eval_scopes(scope_items, context, budgets)
 
         plans: list[_Plan] = []
@@ -840,7 +860,7 @@ class DeviceQueryExecutor:
         would; results are identical either way.
         """
         scopes = await self._batch_eval_scopes(
-            [(0, scope_expr)], context, _Budgets.reckon(self.device)
+            [(0, scope_expr)], context, self._budgets()
         )
         return scopes[0]
 
@@ -1001,9 +1021,7 @@ class DeviceQueryExecutor:
         members_by_seg: list[np.ndarray]
         if all_ops and base:
             with span("engine.accumulate"):
-                sparse = self._postings.lookup_ops_sparse(
-                    all_ops, base, self._semref_ktype, None, 1.0
-                )
+                sparse = self._lookup_sparse(all_ops, base, None, 1.0)
             if (
                 sparse is None
                 and len(jobs) > 1
@@ -1116,7 +1134,7 @@ class DeviceQueryExecutor:
             ktype_predicates=ktype_predicates,
             scope=self._scope_mask(ranges_in_scope),
         )
-        budgets = _Budgets.reckon(self.device)
+        budgets = self._budgets()
         groups = self._group_plans([plan], budgets)
         # Build postings on the loop thread (idempotent, not lock-guarded),
         # then run the fused device call off-loop: a single query behaves
@@ -1272,9 +1290,7 @@ class DeviceQueryExecutor:
         )
         if ops and not has_wildcards and not force_dense:
             with span("engine.accumulate"):
-                sparse = self._postings.lookup_ops_sparse(
-                    ops, base, self._semref_ktype, scopes, boost_factor
-                )
+                sparse = self._lookup_sparse(ops, base, scopes, boost_factor)
             if sparse is not None:
                 cols, packed, counts, op_hit = sparse
                 out: dict[int, dict] = {}

@@ -353,16 +353,39 @@ def accumulate_postings_segmented_coo(
     return keys, sums, torch.tensor(n_runs, dtype=torch.int32, device=dev), runs.op_hit
 
 
-def _mesh_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: a data-parallel mesh is not ported yet (ROADMAP.md Queue 1 item 9); "
-        "the engine runs on one device"
-    )
+def accumulate_postings_segmented_coo_dp(
+    ranks: list[tuple[tuple, dict]],
+    seg_offsets: list[int],
+) -> tuple[torch.Tensor, torch.Tensor, list[torch.Tensor]]:
+    """The sorted core over data-parallel ranks: rank g's ``(operands,
+    statics)`` (as :meth:`DevicePostingsIndex._prepare_operands` packs
+    them, on the rank's device against its replica of the postings, with
+    segments local to the rank) is launched before any rank's result is
+    read. Rank g owns the global segments from ``seg_offsets[g]``; the
+    offsets ascend, so its runs follow rank g-1's. Returns (keys [r] i64 =
+    global segment * (semref_cap + 1) + semref, ascending; sums [4, r]
+    f32; op_hit [t_g] per rank) on the first rank's device. The JAX form
+    takes the ranks' op arrays stacked to one shape for ``shard_map``;
+    here each rank keeps its own."""
+    launched = [_accumulate_runs(*operands, **statics) for operands, statics in ranks]
+    home = launched[0].keys.device
+    width = ranks[0][1]["semref_cap"] + 1
+    keys = torch.cat([r.keys.to(home) + lo * width for r, lo in zip(launched, seg_offsets)])
+    sums = torch.cat([r.sums.to(home) for r in launched], dim=1)
+    return keys, sums, [r.op_hit.to(home) for r in launched]
 
 
-def accumulate_postings_segmented_coo_dp(*args: Any, **kwargs: Any) -> None:
-    """The JAX package's COO form over mesh dp ranks; not ported (item 9)."""
-    raise _mesh_unported("accumulate_postings_segmented_coo_dp")
+def _pack_runs(seg: np.ndarray, col: np.ndarray, sums: np.ndarray, n_seg: int):
+    """Ascending (segment, semref column, sums [4, r]) runs as the COO
+    route's ``(cols [n_seg, m], packed [4, n_seg, m], counts [n_seg])``."""
+    counts = np.bincount(seg, minlength=n_seg).astype(np.int32)
+    rank = np.arange(seg.size) - (np.cumsum(counts) - counts)[seg]
+    m = max(int(counts.max(initial=0)), 1)
+    cols = np.zeros((n_seg, m), dtype=np.int32)
+    packed = np.zeros((4, n_seg, m), dtype=np.float32)
+    cols[seg, rank] = col
+    packed[:, seg, rank] = sums
+    return cols, packed, counts
 
 
 class DevicePostingsIndex:
@@ -393,6 +416,9 @@ class DevicePostingsIndex:
         # device across calls.
         self._ktype_cache: tuple[np.ndarray, torch.Tensor] | None = None
         self._true_mask: torch.Tensor | None = None
+        # CSR replicas on other devices (the dp ranks'), dropped on build.
+        self._replicas: dict[torch.device, tuple[torch.Tensor, ...]] = {}
+        self.dp_calls = 0  # lookup_ops_sparse_dp calls split over ranks
 
     def add_term(self, term: str, semref_id: int, score: float = 1.0) -> None:
         tid = self._interner.intern(term)
@@ -442,6 +468,7 @@ class DevicePostingsIndex:
             self._term_has_dups[combo[dup_pos] // (self._semref_cap + 1)] = True
         self._ktype_cache = None  # semref_cap may have changed
         self._true_mask = None
+        self._replicas = {}
         self._built = True
 
     def lookup(self, term: str) -> int:
@@ -516,14 +543,7 @@ class DevicePostingsIndex:
         if ops and max(op[4] for op in ops) > _POS_P - 2:
             return None
         seg, col, sums, op_hit = self._host_runs(ops, n_seg, semref_ktype, scopes, boost_factor)
-        counts = np.bincount(seg, minlength=n_seg).astype(np.int32)
-        rank = np.arange(seg.size) - (np.cumsum(counts) - counts)[seg]
-        m = max(int(counts.max(initial=0)), 1)
-        cols = np.zeros((n_seg, m), dtype=np.int32)
-        packed = np.zeros((4, n_seg, m), dtype=np.float32)
-        cols[seg, rank] = col
-        packed[:, seg, rank] = sums
-        return cols, packed, counts, op_hit
+        return (*_pack_runs(seg, col, sums, n_seg), op_hit)
 
     def _host_runs(self, ops, n_seg, semref_ktype, scopes, boost_factor):
         """One call of the sorted core, downloaded: (segment, semref column,
@@ -535,13 +555,74 @@ class DevicePostingsIndex:
         seg, col = np.divmod(keys, self._semref_cap + 1)
         return seg, col, sums, op_hit[: len(ops)]
 
-    def lookup_ops_sparse_dp(self, *args: Any, mesh: Any = None, **kwargs: Any) -> None:
-        """The JAX package's COO route over a mesh; not ported (item 9)."""
-        raise _mesh_unported("lookup_ops_sparse_dp")
+    def lookup_ops_sparse_dp(
+        self,
+        ops: list[tuple[int, float, int, int, int, int, int]],
+        n_seg: int,
+        semref_ktype: np.ndarray,
+        scopes: list[np.ndarray | None] | None = None,
+        boost_factor: float = 1.0,
+        *,
+        mesh: Any = None,
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray] | None:
+        """:meth:`lookup_ops_sparse` over a mesh's data-parallel ranks: the
+        segments split into one contiguous range per rank (balanced by
+        posting totals), each rank's ops run through the sorted core on its
+        first device against a replica of the postings, every rank
+        launched before any is downloaded, and the runs come back in global
+        segment numbering. Same return contract as
+        :meth:`lookup_ops_sparse`; with one rank, or fewer than 2 segments,
+        it is that call."""
+        n_dp = mesh.shape[mesh.axis_names[0]] if mesh is not None else 1
+        if n_dp <= 1 or n_seg < 2:
+            return self.lookup_ops_sparse(ops, n_seg, semref_ktype, scopes, boost_factor)
+        if not self._built:
+            self.build()
+        if ops and max(op[4] for op in ops) > _POS_P - 2:
+            return None
+        # Contiguous segment ranges balanced by posting totals.
+        seg_cost = np.zeros(n_seg, dtype=np.int64)
+        for op in ops:
+            if op[0] >= 0:
+                seg_cost[op[2]] += self.posting_size(op[0])
+        cum = np.cumsum(seg_cost)
+        bounds = sorted(
+            {0, n_seg} | {int(np.searchsorted(cum, int(cum[-1]) * g / n_dp)) for g in range(1, n_dp)}
+        )
+        ranges = list(zip(bounds[:-1], bounds[1:]))
+        if max(hi - lo for lo, hi in ranges) * (self._semref_cap + 1) >= _RUN_KEYS:
+            return None
+        self.dp_calls += 1
+        groups = [[oi for oi, op in enumerate(ops) if lo <= op[2] < hi] for lo, hi in ranges]
+        ranks = [
+            self._prepare_operands(
+                [(op[0], op[1], op[2] - lo, *op[3:]) for op in (ops[oi] for oi in idxs)],
+                hi - lo, semref_ktype, scopes, boost_factor, device=mesh.devices[g, 0],
+            )
+            for g, ((lo, hi), idxs) in enumerate(zip(ranges, groups))
+        ]
+        keys, sums, hits = accumulate_postings_segmented_coo_dp(ranks, [lo for lo, _hi in ranges])
+        seg, col = np.divmod(keys.cpu().numpy(), self._semref_cap + 1)
+        op_hit = np.zeros(len(ops), dtype=bool)
+        for idxs, hit in zip(groups, hits):
+            op_hit[idxs] = hit[: len(idxs)].cpu().numpy()
+        return (*_pack_runs(seg, col, sums.cpu().numpy(), n_seg), op_hit)
 
-    def _prepare_operands(self, ops, n_seg, semref_ktype, scopes, boost_factor):
+    def _csr_on(self, device: torch.device) -> tuple[torch.Tensor, ...]:
+        """The CSR postings on ``device``: the index's own, or a replica
+        copied there once per build."""
+        if device == self._offsets.device:
+            return self._offsets, self._semrefs, self._scores
+        if device not in self._replicas:
+            self._replicas[device] = tuple(
+                t.to(device) for t in (self._offsets, self._semrefs, self._scores)
+            )
+        return self._replicas[device]
+
+    def _prepare_operands(self, ops, n_seg, semref_ktype, scopes, boost_factor, device=None):
         """Shared operand packing for the segmented accumulation calls:
-        (operands, statics)."""
+        (operands, statics), on the index's device or on ``device`` (a dp
+        rank's, with its replica of the postings)."""
         arr = np.array([op[:1] + op[2:] for op in ops], dtype=np.int64).reshape(-1, 6)
         tids = arr[:, 0]
         known = tids[tids >= 0]
@@ -571,10 +652,12 @@ class DevicePostingsIndex:
             padded[: len(semref_ktype)] = semref_ktype
             self._ktype_cache = (np.array(semref_ktype, copy=True), torch.from_numpy(padded).to(self.device))
         operands = (
-            self._offsets, self._semrefs, self._scores,
             cols[0], weights, cols[1], cols[2], cols[3], cols[4], cols[5],
-            masks, self._ktype_cache[1], float(boost_factor),
+            masks, self._ktype_cache[1],
         )
+        if device is not None and device != self._offsets.device:
+            operands = tuple(t.to(device) for t in operands)
+        operands = (*self._csr_on(device or self._offsets.device), *operands, float(boost_factor))
         statics = dict(semref_cap=self._semref_cap, n_seg=n_seg, dedup_related=dedup_related)
         return operands, statics
 

@@ -284,6 +284,14 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _on_card(t: torch.Tensor):
+    """Make ``t``'s card the CUDA runtime's current device for a launch.
+    The ctypes entry points launch (and set their kernels' shared-memory
+    attributes) on the current device, which need not be the tensor's
+    card on a machine with several."""
+    return torch.cuda.device(t.device)
+
+
 # ---------------------------------------------------------------------------
 # Launch geometry (pure functions of the shapes and the card's SM count)
 # ---------------------------------------------------------------------------
@@ -446,21 +454,22 @@ def _launch_topk(
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     lib = _build.kernels()
     stream = _stream(emb)
-    _build.check(
-        getattr(lib, entry)(
-            emb.data_ptr(), *head, queries.data_ptr(), n_rows, d_pad, b, count,
-            k, rows_per_split, splits, query_block, *tail, cand_v.data_ptr(),
-            cand_i.data_ptr(), stream,
-        ),
-        f"{counter.name} scan",
-    )
-    _build.check(
-        lib.tat_topk_merge(
-            cand_v.data_ptr(), cand_i.data_ptr(), b, splits, k,
-            out_v.data_ptr(), out_i.data_ptr(), stream,
-        ),
-        f"{counter.name} merge",
-    )
+    with _on_card(emb):
+        _build.check(
+            getattr(lib, entry)(
+                emb.data_ptr(), *head, queries.data_ptr(), n_rows, d_pad, b, count,
+                k, rows_per_split, splits, query_block, *tail, cand_v.data_ptr(),
+                cand_i.data_ptr(), stream,
+            ),
+            f"{counter.name} scan",
+        )
+        _build.check(
+            lib.tat_topk_merge(
+                cand_v.data_ptr(), cand_i.data_ptr(), b, splits, k,
+                out_v.data_ptr(), out_i.data_ptr(), stream,
+            ),
+            f"{counter.name} merge",
+        )
     counter.add()
     return out_v, out_i
 
@@ -691,14 +700,15 @@ def _launch_bucket_maxima(
     count = max(0, min(int(count), n_rows))
     query_block = _MMA_QB if code == 1 else topk_query_block(b)
     per, ctas = bucket_geometry(count, n_rows, b, _sm_count(emb.device.index), query_block)
-    _build.check(
-        _build.kernels().tat_bucket_maxima(
-            emb.data_ptr(), code, q_arg.data_ptr(), n_rows, d_pad, b, count,
-            per, ctas, query_block, out.data_ptr(),
-            idx.data_ptr() if with_idx else None, _stream(emb),
-        ),
-        "bucket argmax" if with_idx else "bucket maxima",
-    )
+    with _on_card(emb):
+        _build.check(
+            _build.kernels().tat_bucket_maxima(
+                emb.data_ptr(), code, q_arg.data_ptr(), n_rows, d_pad, b, count,
+                per, ctas, query_block, out.data_ptr(),
+                idx.data_ptr() if with_idx else None, _stream(emb),
+            ),
+            "bucket argmax" if with_idx else "bucket maxima",
+        )
     return out, idx
 
 
@@ -767,13 +777,14 @@ def _launch_bucket_maxima_q(
     out = torch.empty((b, n_rows // _BUCKET_ROWS), dtype=torch.float32, device=emb.device)
     count = max(0, min(int(count), n_rows))
     per, ctas = bucket_geometry(count, n_rows, b, _sm_count(emb.device.index), _MMA_QB)
-    _build.check(
-        _build.kernels().tat_bucket_maxima_q(
-            emb.data_ptr(), kind, scales.data_ptr(), q_bf16.data_ptr(), n_rows, width,
-            live, b, count, per, ctas, out.data_ptr(), _stream(emb),
-        ),
-        "int4 bucket maxima" if kind else "int8 bucket maxima",
-    )
+    with _on_card(emb):
+        _build.check(
+            _build.kernels().tat_bucket_maxima_q(
+                emb.data_ptr(), kind, scales.data_ptr(), q_bf16.data_ptr(), n_rows, width,
+                live, b, count, per, ctas, out.data_ptr(), _stream(emb),
+            ),
+            "int4 bucket maxima" if kind else "int8 bucket maxima",
+        )
     return out
 
 
@@ -833,13 +844,14 @@ def rescore_selected(
         raise ValueError(f"rescore takes d_pad <= 12288, got {d_pad}")
     B = bucket_ids.shape[1]
     out = torch.empty((b, B * _BUCKET_ROWS), dtype=torch.float32, device=emb.device)
-    _build.check(
-        _build.kernels().tat_rescore(
-            emb.data_ptr(), code, queries.data_ptr(), bucket_ids.data_ptr(),
-            n_rows, d_pad, b, B, out.data_ptr(), _stream(emb),
-        ),
-        "rescore",
-    )
+    with _on_card(emb):
+        _build.check(
+            _build.kernels().tat_rescore(
+                emb.data_ptr(), code, queries.data_ptr(), bucket_ids.data_ptr(),
+                n_rows, d_pad, b, B, out.data_ptr(), _stream(emb),
+            ),
+            "rescore",
+        )
     RESCORE_LAUNCHES.add()
     return out
 
@@ -964,12 +976,14 @@ def scope_tiles(mask: torch.Tensor, count: int) -> tuple[torch.Tensor, torch.Ten
         raise ValueError("the listing kernel takes a contiguous int32 mask")
     words = torch.empty((-(-live // 32),), dtype=torch.int32, device=m.device)  # 32 tile flags each
     tiles, n_tiles = _list_buffers(live, m.device)
-    _build.check(
-        _build.kernels().tat_scope_tiles(
-            m.data_ptr(), count, words.data_ptr(), tiles.data_ptr(), n_tiles.data_ptr(), _stream(m)
-        ),
-        "scope_tiles",
-    )
+    with _on_card(m):
+        _build.check(
+            _build.kernels().tat_scope_tiles(
+                m.data_ptr(), count, words.data_ptr(), tiles.data_ptr(), n_tiles.data_ptr(),
+                _stream(m),
+            ),
+            "scope_tiles",
+        )
     SCOPE_TILES_LAUNCHES.add()
     return tiles, n_tiles
 
@@ -1011,13 +1025,14 @@ def interval_tiles(
         raise ValueError("the listing kernel takes a contiguous [s, 2] int32 table")
     count = max(0, min(int(count), n_rows))
     tiles, n_tiles = _list_buffers(-(-count // _RB), intervals.device)
-    _build.check(
-        _build.kernels().tat_interval_tiles(
-            intervals.data_ptr(), intervals.shape[0], count, tiles.data_ptr(),
-            n_tiles.data_ptr(), _stream(intervals),
-        ),
-        "interval_tiles",
-    )
+    with _on_card(intervals):
+        _build.check(
+            _build.kernels().tat_interval_tiles(
+                intervals.data_ptr(), intervals.shape[0], count, tiles.data_ptr(),
+                n_tiles.data_ptr(), _stream(intervals),
+            ),
+            "interval_tiles",
+        )
     INTERVAL_TILES_LAUNCHES.add()
     return tiles, n_tiles
 

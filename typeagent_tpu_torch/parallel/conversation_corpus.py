@@ -11,12 +11,13 @@ conversation design (`aitools/vectorbase.py:82`): instead of N small
 host-RAM matrices scanned serially, N conversations share one HBM-resident
 matrix across the mesh.
 
-The port of ``typeagent_tpu/parallel/conversation_corpus.py`` on the port's
-one-card ``CorpusVectorStore``: ``device=`` names the card (or ``"cpu"``), a
-global search runs K1 and a search scoped to conversations K4 over their
-segments' interval table. A ``mesh`` and the orbax checkpoints of
-:meth:`ConversationCorpus.save` / :meth:`ConversationCorpus.load` are ROADMAP.md
-Queue 1 item 9 and raise.
+The port of ``typeagent_tpu/parallel/conversation_corpus.py``: ``mesh=``
+(``parallel.mesh.Mesh``) names the devices the matrix shards over, or
+``device=`` the one device (or ``"cpu"``) it lives on; each shard runs K1
+for a global search and K4 over its part of the conversations' interval
+table for a scoped one. :meth:`ConversationCorpus.save` and
+:meth:`ConversationCorpus.load` checkpoint the mirror through
+``parallel/checkpoint.py`` and restore it onto any mesh shape.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from ..knowpro.interfaces import IConversation, ScoredMessageOrdinal, TextLocation
 from .corpus import CorpusVectorStore
+from .mesh import Mesh, single_device_mesh
 
 if TYPE_CHECKING:
     import os
@@ -50,15 +52,8 @@ class CorpusMessageHit:
     score: float
 
 
-# The ROADMAP.md Queue 1 item that ports what this corpus refuses.
-_CHECKPOINT_NOT_PORTED = (
-    "corpus checkpoints (parallel/checkpoint.py, orbax in the JAX package) "
-    "are not ported yet (ROADMAP.md Queue 1 item 9)"
-)
-
-
 class ConversationCorpus:
-    """Cross-conversation message-text search on one device.
+    """Cross-conversation message-text search on a device mesh.
 
     Conversations keep their own indexes/storage; the corpus mirrors their
     message-chunk embeddings into the shared sharded matrix. ``refresh()``
@@ -68,7 +63,7 @@ class ConversationCorpus:
     def __init__(
         self,
         dim: int,
-        mesh: object | None = None,
+        mesh: Mesh | None = None,
         dtype: str | torch.dtype | None = None,
         *,
         device: str | torch.device = "cuda",
@@ -100,20 +95,49 @@ class ConversationCorpus:
             self._embedder = self._message_index(conversation)
         await self.refresh(name)
 
-    # -- persistence (orbax in the JAX package; ROADMAP.md Queue 1 item 9) ---
+    # -- persistence (see parallel/checkpoint.py) -----------------------------
 
     def save(self, path: str | os.PathLike) -> None:
-        """Checkpoint the mirror (device matrix + location/sync tables):
-        not ported yet (ROADMAP.md Queue 1 item 9)."""
-        raise NotImplementedError(_CHECKPOINT_NOT_PORTED)
+        """Checkpoint the mirror (the sharded matrix + location/sync tables).
+
+        After :meth:`load`, re-attach live conversations with
+        :meth:`add_conversation`: already mirrored rows are NOT uploaded
+        again (refresh resumes from the restored sync watermarks).
+        """
+        from .checkpoint import save_corpus
+
+        save_corpus(
+            self._store,
+            path,
+            extra_meta={
+                "mirror_locations": {
+                    name: [[loc.message_ordinal, loc.chunk_ordinal] for loc in locs]
+                    for name, locs in self._locations.items()
+                },
+                "mirror_synced": dict(self._synced_counts),
+            },
+        )
 
     @classmethod
     def load(
-        cls, path: str | os.PathLike, mesh: object | None = None
+        cls, path: str | os.PathLike, mesh: Mesh | None = None, *,
+        device: str | torch.device = "cuda",
     ) -> "ConversationCorpus":
-        """Restore a mirror checkpoint: not ported yet (ROADMAP.md Queue 1
-        item 9)."""
-        raise NotImplementedError(_CHECKPOINT_NOT_PORTED)
+        """Restore a mirror checkpoint onto ``mesh`` (any shape), or onto
+        the one ``device``."""
+        from .checkpoint import _read_meta, restore_corpus
+
+        meta = _read_meta(path)
+        corpus = cls.__new__(cls)
+        corpus._store = restore_corpus(mesh or single_device_mesh(device), path)
+        corpus._conversations = {}
+        corpus._locations = {
+            name: [TextLocation(m, c) for m, c in pairs]
+            for name, pairs in meta.get("mirror_locations", {}).items()
+        }
+        corpus._synced_counts = dict(meta.get("mirror_synced", {}))
+        corpus._embedder = None
+        return corpus
 
     async def refresh(self, name: str | None = None) -> int:
         """Mirror newly indexed chunks into the shared matrix.

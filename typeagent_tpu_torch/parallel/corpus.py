@@ -1,15 +1,17 @@
-"""Multi-conversation corpus store: many conversations, one device matrix.
+"""Multi-conversation corpus store: many conversations, one sharded matrix.
 
 BASELINE.json config #5: a store holding millions of fragments across many
-conversations. All conversations' chunk embeddings live in ONE matrix
-(``ShardedVectorStore``); each conversation owns contiguous row segments.
-Search targets one conversation, a set, or the whole corpus; scoping turns
-the wanted conversations' segments into an interval table, from which the
-device builds its row filter, so a scoped search costs the same fused scan
-as a global one. With ``search_mode="approx"`` global searches ride the
-approx route, with ``"ivf"`` the IVF snapshot once :meth:`build_ivf` has
-run (exact until then); scoped searches stay exact either way. Port of ``typeagent_tpu/parallel/corpus.py`` on one
-device (``device=`` takes the place of ``mesh=``).
+conversations, sharded over a mesh. All conversations' chunk embeddings
+live in ONE row-sharded matrix (``ShardedVectorStore``); each conversation
+owns contiguous row segments. Search targets one conversation, a set, or
+the whole corpus; scoping turns the wanted conversations' segments into an
+interval table, from which each shard builds its row filter on its
+device, so a scoped search costs the same fused scan as a global one. With
+``search_mode="approx"`` global searches ride the approx route, with
+``"ivf"`` the per-shard IVF snapshots once :meth:`build_ivf` has run
+(exact until then); scoped searches stay exact either way. Port of
+``typeagent_tpu/parallel/corpus.py``: ``mesh=`` names the devices, and
+without one the corpus is one shard on ``device``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .mesh import Mesh
 from .sharded import ShardedVectorStore
 
 __all__ = ["CorpusVectorStore", "CorpusHit"]
@@ -43,7 +46,7 @@ class _Segment:
 
 
 class CorpusVectorStore:
-    """Append-only multi-tenant fragment store over one device matrix."""
+    """Append-only multi-tenant fragment store over a row-sharded matrix."""
 
     def __init__(
         self,
@@ -52,11 +55,12 @@ class CorpusVectorStore:
         dtype: str | torch.dtype | None = None,
         search_mode: str = "exact",
         *,
-        mesh: object | None = None,
+        mesh: Mesh | None = None,
     ):
         self._store = ShardedVectorStore(
             dim, dtype=dtype or "float32", search_mode=search_mode, device=device, mesh=mesh
         )
+        self.mesh = self._store.mesh
         self.device = self._store.device
         self._segments: list[_Segment] = []  # ordered by global start
         self._local_counts: dict[str, int] = {}
@@ -83,7 +87,7 @@ class CorpusVectorStore:
         self._append_segment(conversation, rows.shape[0], self._store.append, rows)
 
     def reserve(self, n_rows: int) -> None:
-        """Pre-size the device buffer for a known corpus size."""
+        """Pre-size the sharded matrix for a known corpus size."""
         self._store.reserve(n_rows)
 
     def build_ivf(self, **build_kwargs: Any) -> None:

@@ -26,7 +26,12 @@ table, lazy embedding-size adoption.
 
 ``TextEmbeddingIndexSettings.device`` names the device. ``"cpu"`` runs
 the kernels' plain PyTorch versions (the tests use it); ``"cuda"``, the
-default, runs the kernels and raises where there is no CUDA device.
+default, runs the kernels and raises where there is no CUDA device. With
+``mesh=`` (``parallel.mesh.Mesh``) the rows live in a row-sharded
+``parallel.sharded.ShardedVectorStore`` over the mesh's devices instead,
+as in the JAX package: lookups run every shard's one-phase scan (approx
+and IVF per shard where asked) and merge, and the host-side pending and
+scoring semantics stay those of the one-device store.
 """
 
 from __future__ import annotations
@@ -79,7 +84,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.i
 _SEARCH_MODES = ("exact", "exact1", "exact2", "approx", "ivf")
 # ROADMAP.md Queue 1 items that port the settings this store refuses.
 _NOT_PORTED = {
-    "mesh": "mesh= (ROADMAP.md Queue 1 item 9)",
     "query_wire": "query_wire='int8' (ROADMAP.md Queue 1 item 7)",
 }
 
@@ -102,11 +106,22 @@ class ScoredInt:
     score: float
 
 
+_NATIVE_RESULTS_CACHE: list = []  # [module_or_None] once resolved
+
+
+def _native_results():
+    """The native result materializer, or None (resolved once; a test sets
+    the cache to ``[None]`` to take the Python fallback)."""
+    if not _NATIVE_RESULTS_CACHE:
+        _NATIVE_RESULTS_CACHE.append(_native_mod.load_results_module())
+    return _NATIVE_RESULTS_CACHE[0]
+
+
 def _materialize_rows(vals, idx, b: int, min_score: float):
     """[b, k] fetched host arrays -> list[list[ScoredInt]] (order kept;
     entries with score < min_score or ordinal < 0 dropped). The native
     materializer's ScoredInt compares equal to the dataclass above."""
-    native = _native_mod.load_results_module()
+    native = _native_results()
     if native is not None:
         vals_c = np.ascontiguousarray(vals[:b], dtype=np.float32)
         idx_c = np.ascontiguousarray(idx[:b], dtype=np.int32)
@@ -117,6 +132,18 @@ def _materialize_rows(vals, idx, b: int, min_score: float):
         results.append(
             [ScoredInt(int(i), float(v)) for v, i in zip(vals[r][keep], idx[r][keep])]
         )
+    return results
+
+
+def _predicate_rows(scores: np.ndarray, max_hits: int, min_score: float, predicate):
+    """The host-predicate path over a fetched ``[b, count]`` score matrix:
+    the candidates at or above ``min_score`` that pass, best first."""
+    results = []
+    for row in scores:
+        cand = np.flatnonzero(row >= min_score)
+        scored = [ScoredInt(int(i), float(row[i])) for i in cand if predicate(int(i))]
+        scored.sort(key=lambda s: s.score, reverse=True)
+        results.append(scored[:max_hits])
     return results
 
 
@@ -142,7 +169,9 @@ class TextEmbeddingIndexSettings:
     ``dtype`` is the device buffer's type (``float32``, the parity
     default, ``bfloat16`` or ``int8``); ``search_mode`` is ``exact``
     (routes by row count), ``exact1``, ``exact2``, ``approx`` or ``ivf``
-    (f32/bf16 stores); ``device`` is where the store lives.
+    (f32/bf16 stores); ``device`` is where the store lives, or ``mesh``
+    (a ``parallel.mesh.Mesh``) the devices it is sharded over, the first
+    of which then stands as ``device``.
     """
 
     def __init__(
@@ -164,14 +193,18 @@ class TextEmbeddingIndexSettings:
             raise ValueError(f"search_mode={search_mode!r} supports float32/bfloat16 stores only")
         if search_mode not in _SEARCH_MODES:
             raise ValueError(f"unknown search_mode {search_mode!r}")
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED["mesh"])
         if query_wire == "int8" and dtype != "bfloat16":
             raise ValueError("query_wire='int8' requires dtype='bfloat16'")
         if query_wire == "int8":
             raise NotImplementedError(_NOT_PORTED["query_wire"])
         if query_wire != "auto":
             raise ValueError(f"unknown query_wire {query_wire!r}")
+        if mesh is not None:
+            from .parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+            device = mesh.devices[0, 0]
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -191,7 +224,9 @@ class TextEmbeddingIndexSettings:
         self.max_matches = max_matches if max_matches and max_matches >= 1 else None
         self.batch_size = batch_size if batch_size and batch_size >= 1 else 8
         self.dtype = dtype
-        self.mesh = None
+        # The store's rows shard over the mesh's fragment axis (multi-card
+        # conversations).
+        self.mesh = mesh
         self.search_mode = search_mode
         # Kept as in the JAX settings; the port's approx routes have no
         # recall knob (ops.topk.cosine_topk_approx).
@@ -297,6 +332,10 @@ class VectorStore:
         # one writes a copy, never the pinned tensor. Guarded by _flush_lock.
         self._pinned_bufs: list[torch.Tensor] = []
         self._ivf_rebuild_thread: threading.Thread | None = None
+        # Mesh mode: the rows live in a row-sharded store (made once the
+        # embedding size is known) instead of the one-device buffer.
+        self._mesh = settings.mesh
+        self._sharded = None
 
     # -- embedding model passthrough ----------------------------------------
 
@@ -388,6 +427,10 @@ class VectorStore:
         Appends beyond the reservation fall back to doubling."""
         with self._flush_lock:
             self._reserve_hint = max(self._reserve_hint, int(n_rows))
+            if self._mesh is not None:
+                if self._embedding_size:
+                    self._sharded_store().reserve(self._reserve_hint)
+                return
             if self._buf is not None and self._buf.shape[0] < self._reserve_hint:
                 self._set_buffer(
                     append.grow_buffer(
@@ -441,6 +484,11 @@ class VectorStore:
             self._flush_locked()
             if n == 0:
                 return
+            if self._mesh is not None:
+                store = self._sharded_store()
+                store.append_device(rows)
+                self._count = store.count
+                return
             self._ensure_capacity_locked(n)
             if self._quantized:
                 rows, row_scales = topk.quantize_rows_device(rows)
@@ -471,6 +519,10 @@ class VectorStore:
         if n == 0:
             return
         with self._flush_lock:
+            if self._mesh is not None:
+                self._sharded_store().adopt_quantized(q_rows, scales)
+                self._count = n
+                return
             self._ensure_capacity_locked(n)
             self._buf[:n, :size].copy_(torch.from_numpy(q_rows))
             append.append_rows(self._scales, scales, 0)
@@ -514,9 +566,34 @@ class VectorStore:
             self._pending_rows = 0
         return np.concatenate(pending, axis=0)
 
+    def _sharded_store(self):
+        """Mesh mode's row-sharded store (made on first use, once the
+        embedding size is known; the one-phase modes all scan each shard)."""
+        if self._sharded is None:
+            from .parallel.sharded import ShardedVectorStore
+
+            mode = self.settings.search_mode
+            self._sharded = ShardedVectorStore(
+                self._embedding_size,
+                dtype=self.settings.dtype,
+                search_mode=mode if mode in ("approx", "ivf") else "exact",
+                recall_target=self.settings.recall_target,
+                ivf_b=self.settings.ivf_b,
+                mesh=self._mesh,
+            )
+            if self._reserve_hint:
+                self._sharded.reserve(self._reserve_hint)
+        return self._sharded
+
     def _flush_locked(self) -> None:
         rows = self._take_pending()
         if rows is None:
+            return
+        if self._mesh is not None:
+            store = self._sharded_store()
+            store.append(rows)
+            store._flush()
+            self._count = store.count
             return
         n = rows.shape[0]
         padded = np.zeros((n, self._dim_pad), dtype=np.float32)
@@ -603,6 +680,8 @@ class VectorStore:
         if min_score is None:
             min_score = 0.0
         b = queries.shape[0]
+        if self._mesh is not None:
+            return self._lookup_sharded(queries, max_hits, min_score, predicate)
         with self._dispatch_view() as (buf, scales, count):
             if count == 0 or b == 0:
                 return [[] for _ in range(b)]
@@ -613,21 +692,40 @@ class VectorStore:
                 k = min(max_hits, count)
                 vals, idx, cert = self._topk_dispatch(q, k, buf, scales, count)
         if predicate is not None:
-            # Host-callback path: the full masked score matrix, then the
-            # predicate over candidates above the threshold.
-            scores = scores_dev[:b].cpu().numpy()
-            results = []
-            for row in scores:
-                cand = np.flatnonzero(row >= min_score)
-                scored = [ScoredInt(int(i), float(row[i])) for i in cand if predicate(int(i))]
-                scored.sort(key=lambda s: s.score, reverse=True)
-                results.append(scored[:max_hits])
-            return results
+            return _predicate_rows(scores_dev[:b].cpu().numpy(), max_hits, min_score, predicate)
         if cert is None:
             vals, idx = _fetch(vals, idx)
         else:
             vals, idx, cert_h = _fetch(vals, idx, cert)
             vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b, b)
+        return _materialize_rows(vals, idx, b, min_score)
+
+    def _lookup_sharded(self, queries, max_hits: int, min_score: float, predicate):
+        """Mesh mode's batched lookup: the sharded store's score matrix for
+        a host predicate, its IVF snapshot where one is built, else its
+        one-phase dispatch, materialized from the fetched buffers."""
+        b = queries.shape[0]
+        with self._dispatch_view() as (_buf, _scales, count):
+            if count == 0 or b == 0:
+                return [[] for _ in range(b)]
+            store = self._sharded_store()
+            queries = np.asarray(queries, dtype=np.float32)
+            if predicate is not None:
+                return _predicate_rows(store.scores(queries), max_hits, min_score, predicate)
+            if store.search_mode == "ivf" and store._ivf is not None:
+                rows = store.search_ivf(queries, min(max_hits, count), min_score)[0]
+                return [[ScoredInt(i, v) for i, v in row] for row in rows]
+            handle = store.search_dispatch(queries, min(max_hits, count), min_score)
+        return self._collect_sharded_scored(handle, min_score)
+
+    @staticmethod
+    def _collect_sharded_scored(handle, min_score: float) -> list[list[ScoredInt]]:
+        """Materialize a sharded dispatch handle into ScoredInt rows
+        (min_score was applied on the device; padding carries -1)."""
+        if handle[0] == "empty":
+            return [[] for _ in range(handle[1])]
+        vals, idx, b = handle
+        vals, idx = _fetch(vals, idx)
         return _materialize_rows(vals, idx, b, min_score)
 
     def _all_scores(self, q: torch.Tensor, buf: torch.Tensor, scales, count: int):
@@ -781,6 +879,10 @@ class VectorStore:
             if not count:
                 return
             kwargs.setdefault("outlier_frac", self.settings.ivf_outlier_frac)
+            if self._mesh is not None:
+                # One index per shard, on its device (parallel/ivf.py).
+                self._sharded_store().build_ivf(**kwargs)
+                return
             self._ivf = ivf.ivf_build(buf, count, **kwargs)
             self._ivf_count = count
             self._esc_ema = None  # new buckets: re-learn the escalation yield
@@ -791,6 +893,11 @@ class VectorStore:
         ``ops.ivf.adopt_ivf_state``)."""
         if self._quantized:
             raise ValueError("IVF supports float32/bfloat16 stores only")
+        if self._mesh is not None:
+            raise ValueError(
+                "adopt_ivf takes a one-device snapshot; a mesh store builds one "
+                "index per shard with build_ivf"
+            )
         with self._flush_lock:
             self._flush_locked()
             self._ivf = ivf.adopt_ivf_state(arrays, self._device, self._dtype)
@@ -826,9 +933,10 @@ class VectorStore:
             t = self._ivf_rebuild_thread
             if t is not None and t.is_alive():
                 return t
-            t = threading.Thread(
-                target=self._rebuild_and_swap, kwargs=kwargs, daemon=True, name="tat-ivf-rebuild"
-            )
+            # A mesh store rebuilds its per-shard indexes under the sharded
+            # store's own lock, which serving waits on meanwhile.
+            target = self.build_ivf if self._mesh is not None else self._rebuild_and_swap
+            t = threading.Thread(target=target, kwargs=kwargs, daemon=True, name="tat-ivf-rebuild")
             self._ivf_rebuild_thread = t
         t.start()
         return t
@@ -945,6 +1053,13 @@ class VectorStore:
         if qb.ndim != 3:
             raise ValueError(f"Expected [R, b, d] query batches, got {qb.shape}")
         r_n, b = qb.shape[0], qb.shape[1]
+        if self._mesh is not None:
+            # Sharded stores pipeline one dispatch per batch (the mesh
+            # program already spreads each batch over the shards).
+            if len(self) == 0 or r_n == 0 or b == 0:
+                return [[[] for _ in range(b)] for _ in range(r_n)]
+            handles = [self.dispatch_lookup(qb[i], max_hits=max_hits) for i in range(r_n)]
+            return [self.collect_lookup(h, min_score=min_score) for h in handles]
         with self._dispatch_view() as (buf, scales, count):
             if count == 0 or r_n == 0 or b == 0:
                 return [[[] for _ in range(b)] for _ in range(r_n)]
@@ -1000,6 +1115,13 @@ class VectorStore:
         with self._dispatch_view() as (buf, scales, count):
             if count == 0 or queries.shape[0] == 0:
                 return None
+            if self._mesh is not None:
+                store = self._sharded_store()
+                queries = np.asarray(queries, dtype=np.float32)
+                if store.search_mode == "ivf" and store._ivf is not None:
+                    rows = store.search_ivf(queries, min(max_hits, count))[0]
+                    return ("sharded_rows", [[ScoredInt(i, v) for i, v in row] for row in rows])
+                return ("sharded", store.search_dispatch(queries, k=min(max_hits, count)))
             q = self._pad_queries(queries)
             k = min(max_hits, count)
             # The certificate is checked at collect time (reading it here
@@ -1014,6 +1136,10 @@ class VectorStore:
         """Materialize a dispatch_lookup handle into scored results."""
         if handle is None:
             return []
+        if handle[0] == "sharded":
+            return self._collect_sharded_scored(handle[1], min_score)
+        if handle[0] == "sharded_rows":  # an IVF mesh lookup, answered
+            return [[r for r in row if r.score >= min_score] for row in handle[1]]
         if len(handle) == 7:  # exact2 dispatch: certificate checked here
             vals, idx, b, cert, q, k, count = handle
             vals, idx, cert_h = _fetch(vals, idx, cert)
@@ -1031,6 +1157,14 @@ class VectorStore:
         with self._dispatch_view() as (buf, scales, count):
             if not ordinals_of_subset or count == 0:
                 return []
+            if self._mesh is not None:
+                # The sharded subset search fetches its answer itself.
+                raw = self._sharded_store().search_subset(
+                    np.asarray(embedding, dtype=np.float32).reshape(1, -1),
+                    ordinals_of_subset,
+                    k=min(max_hits, len(ordinals_of_subset)),
+                )[0]
+                return [ScoredInt(i, v) for i, v in raw]
             s = len(ordinals_of_subset)
             s_pad = _bucket(s, (_SUBSET_MIN_BUCKET, 128, 256, 512, 1024, 2048, 4096))
             ords = np.zeros((s_pad,), dtype=np.int32)
@@ -1069,7 +1203,7 @@ class VectorStore:
             min_score = 0.0
         out = self._subset_dispatch(embedding, ordinals_of_subset, max_hits)
         if isinstance(out, list):
-            return out
+            return [r for r in out if r.score >= min_score]
         vals, idx = _fetch(*out)
         return self._subset_collect(vals, idx, min_score)
 
@@ -1085,6 +1219,12 @@ class VectorStore:
             max_hits = 10
         if min_score is None:
             min_score = 0.0
+        if self._mesh is not None:
+            # The sharded subset search waits for the devices: off the loop.
+            return await asyncio.to_thread(
+                self.fuzzy_lookup_embedding_in_subset, embedding, ordinals_of_subset,
+                max_hits, min_score,
+            )
         out = self._subset_dispatch(embedding, ordinals_of_subset, max_hits)
         if isinstance(out, list):
             return out
@@ -1124,6 +1264,7 @@ class VectorStore:
             self._buf = None
             self._scales = None
             self._shadow_cache = None
+            self._sharded = None
             self._count = 0
             # The snapshot indexes the rows cleared here.
             self._ivf = None
@@ -1135,6 +1276,8 @@ class VectorStore:
 
     def _device_rows(self, start: int, stop: int) -> np.ndarray:
         """Committed rows [start, stop) as host f32 (dequantized for int8)."""
+        if self._mesh is not None:
+            return self._sharded_store().get_rows(start, stop)
         rows = self._buf[start:stop, : self._embedding_size].float()
         if self._quantized:
             rows = rows * self._scales[start:stop, None]
@@ -1168,7 +1311,7 @@ class VectorStore:
         JAX store's format, so either package reads the other's output);
         an int8 store's rows come out dequantized."""
         parts = []
-        if self._count and self._buf is not None:
+        if self._count:
             parts.append(self._device_rows(0, self._count))
         parts.extend(self._pending)
         if not parts:
