@@ -248,6 +248,28 @@ Phases, one JSON line each:
      --mesh`` builds the kernels and runs this phase alone, with its own
      references (a one-device corpus, a 20,000-message conversation).
 
+ 18. The tools (``typeagent_tpu_torch/tools/``) on the card: (a) the golden
+     eval (``eval_golden.run_eval(update=False, device="cuda")``) on the
+     device engine, the host VM and approx lookups, each against the
+     committed ``tests/testdata/golden_eval.json`` (every route must
+     return 0), its seconds and launches. (a) launches no hand-written
+     kernel: the fixture's indexes hold at most 33 rows, so approx there
+     takes the exact route (``approx_uses_buckets``), and every lookup
+     asks for k = 50, the materialized route. It holds the goldens on the
+     card, not the approx selection (phase 8 holds K2'); (b) the int8 query wire: a
+     1,000,000 x 384 bf16 store of unit rows made on the card from the
+     seed, b = 256 (the first 8 queries rows of the store), k = 10, the
+     float wire and the int8 wire on the same queries, sync and through
+     ``LookupBatcher``: self-matches first, recall@10 of the int8 wire
+     against the float wire at least 0.95 (``tests/test_query_wire.py``'s
+     bound), the int8 wire's answers equal to the plain f32 top-k of the
+     same dequantized queries up to ties within 2e-6, the bytes each wire
+     uploads per batch, host-clock p50 of each wire, K2 and K3 launches;
+     (c) ``benchmark_vectorstore`` and ``benchmark_serve --wire int8`` as
+     subprocesses on the card, each exiting 0, their last lines.
+     ``python3 chip_smoke.py --tools`` builds the kernels and runs this
+     phase alone.
+
 Each phase's line carries ``t_s``, the seconds since the script started.
 
 Each corpus search is checked three ways: the API's hits are the kernel's
@@ -361,6 +383,14 @@ FAKE_DIM = 1536  # openai:text-embedding-ada-002, DEFAULT_EMBEDDING_SPEC
 FAKE_ERRORS = (97, 89)  # 429 to every 97th request, 503 to every 89th
 MCP_CALLS = 8  # each of query_conversation and query_corpus
 CORPUS_QUERIES = 64
+# Phase 18: the int8 query wire at the serving cell's shape, and the
+# recall bound of tests/test_query_wire.py.
+WIRE_ROWS = 1_000_000
+WIRE_B = 256
+WIRE_SELF = 8  # queries that are rows of the store
+WIRE_RECALL = 0.95
+WIRE_TIMED = 20  # sync lookups per wire for the host-clock p50
+WIRE_REQUESTS = 32  # batcher requests of WIRE_B / WIRE_REQUESTS queries
 
 
 T_START = time.perf_counter()
@@ -2416,6 +2446,177 @@ async def _mesh_stages(dev, sizes, phase6, ivf_gen_state, conv_ctx) -> tuple[dic
     return out, counts
 
 
+# Phase 18: the tools on the card.
+
+
+async def golden_eval_routes(device: str) -> dict:
+    """``eval_golden.run_eval`` against the committed goldens on the device
+    engine, the host VM and approx lookups: each route's exit code (0 when
+    every query matches), seconds, launches and last printed line. At the
+    fixture's 33 rows every route's lookups take the materialized k > 32
+    route; approx reaches no bucket kernel."""
+    import io
+
+    from typeagent_tpu_torch.ops import topk
+    from typeagent_tpu_torch.tools import eval_golden
+
+    routes = {"engine": {}, "host_vm": {"use_device_executor": False}, "approx": {"search_mode": "approx"}}
+    out = {}
+    for name, kwargs in routes.items():
+        printed = io.StringIO()
+        topk.reset_launch_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = await eval_golden.run_eval(update=False, device=device, **kwargs)
+        lines = printed.getvalue().splitlines()
+        out[name] = {"rc": rc, "s": round(time.perf_counter() - t, 3),
+                     "launches": {k: v for k, v in topk.launch_counts().items() if v},
+                     "last_line": lines[-1] if lines else "", "mismatches": lines[:-1][:8]}
+    return out
+
+
+async def int8_wire_check(dev, n_rows: int = WIRE_ROWS, b: int = WIRE_B, k: int = K_MAIN,
+                          seed: int = SEED) -> tuple[dict, dict]:
+    """The int8 query wire against the float wire on one bf16 store's rows:
+    two stores over the same seed-made unit rows, the same queries (the
+    first WIRE_SELF of them rows of the store), sync and through
+    ``LookupBatcher``. Fails unless the self-matches come first on both
+    wires, recall@k of the int8 wire against the float wire is at least
+    WIRE_RECALL, every int8-wire answer equals the plain f32 top-k of its
+    dequantized query over the bf16 rows up to ties within TOL_F32, and
+    the batcher gives each wire's sync answers (ties within TOL_F32).
+    Returns the line's numbers and the launches of the int8 wire's sync
+    and batcher runs."""
+    import torch
+
+    from typeagent_tpu_torch import vectorstore as vs
+    from typeagent_tpu_torch.models.adapters import create_test_embedding_model
+    from typeagent_tpu_torch.ops import topk
+    from typeagent_tpu_torch.serve import LookupBatcher
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 18)
+    rows = torch.randn((n_rows, D_MAIN), generator=gen, device=dev)
+    rows /= torch.linalg.norm(rows, dim=1, keepdim=True)
+    q = torch.randn((b, D_MAIN), generator=gen, device=dev)
+    q /= torch.linalg.norm(q, dim=1, keepdim=True)
+    q[:WIRE_SELF] = rows[:WIRE_SELF]
+    queries = q.cpu().numpy()
+    stores = {}
+    for wire in ("auto", "int8"):
+        stores[wire] = vs.VectorStore(vs.TextEmbeddingIndexSettings(
+            create_test_embedding_model(D_MAIN), min_score=0.0, dtype="bfloat16", query_wire=wire, device=dev))
+        stores[wire].load_device_rows(rows)
+    del rows
+
+    def hits(rows_of_hits):
+        return [[(h.item, h.score) for h in row] for row in rows_of_hits]
+
+    topk.reset_launch_counts()
+    sync = {wire: hits(st.fuzzy_lookup_embeddings_batch(queries, max_hits=k)) for wire, st in stores.items()}
+    launches = topk.launch_counts()  # the float wire's and the int8 wire's
+    for wire, got in sync.items():
+        for i in range(WIRE_SELF):
+            require(got[i][0][0] == i, f"phase 18 (b) {wire} wire: query {i} found {got[i][0]} first")
+    recall = float(np.mean([len({o for o, _ in a} & {o for o, _ in f}) / k
+                            for a, f in zip(sync["int8"], sync["auto"])]))
+    require(recall >= WIRE_RECALL, f"phase 18 (b): int8-wire recall@{k} {recall} < {WIRE_RECALL}")
+
+    # The plain version: the same dequantized queries against the store's
+    # bf16 rows, f32 products (no TF32), a stable descending sort.
+    b_pad, dim_pad = vs._bucket(b), stores["int8"]._dim_pad
+    q_deq = vs._int8_wire_upload(queries, (b_pad, dim_pad), D_MAIN, dev)[:b, :D_MAIN]
+    buf = stores["int8"]._buf[:n_rows, :D_MAIN].float()
+    scores = ((q_deq @ buf.T + 1.0) * 0.5).clamp(0.0, 1.0)
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :k].cpu().numpy(), idx[:, :k].cpu().numpy()
+    del buf, scores
+    err = 0.0
+    for r in range(b):
+        want = list(zip(idx[r].tolist(), vals[r].tolist()))
+        close_up_to_ties(sync["int8"][r], want, TOL_F32, f"phase 18 (b) int8 wire query {r} vs plain")
+        err = max(err, max(abs(x - y) for (_, x), (_, y) in zip(sync["int8"][r], want)))
+
+    async def through_batcher(store):
+        batcher = LookupBatcher(store, max_delay_ms=1.0, max_coalesce=8)
+        per = b // WIRE_REQUESTS
+        try:
+            got = await asyncio.gather(*(batcher.lookup(queries[i * per:(i + 1) * per], max_hits=k)
+                                         for i in range(WIRE_REQUESTS)))
+        finally:
+            await batcher.close()
+        return [row for group in got for row in hits(group)], batcher.dispatches
+
+    topk.reset_launch_counts()
+    served, dispatches = {}, {}
+    for wire, st in stores.items():
+        served[wire], dispatches[wire] = await through_batcher(st)
+        for r in range(b):
+            close_up_to_ties(served[wire][r], sync[wire][r], TOL_F32, f"phase 18 (b) {wire} batcher query {r}")
+    for name, n in topk.launch_counts().items():
+        launches[name] += n
+    for name in ("bucket_maxima", "rescore"):
+        require(launches[name] > 0, f"phase 18 (b): the {name} kernel never ran ({launches})")
+
+    # Host clock, the two wires in turns (float, int8, int8, float, ...).
+    times = {"auto": [], "int8": []}
+    for i in range(WIRE_TIMED):
+        for wire in (("auto", "int8") if i % 2 == 0 else ("int8", "auto")):
+            t = time.perf_counter()
+            stores[wire].fuzzy_lookup_embeddings_batch(queries, max_hits=k)
+            times[wire].append((time.perf_counter() - t) * 1000)
+    out = {
+        "rows": n_rows, "b": b, "k": k, "recall_at_k_int8_vs_float": recall,
+        "self_matches_first": WIRE_SELF, "max_abs_err_vs_plain": err,
+        "upload_bytes_per_batch": {"float": b_pad * dim_pad * 4, "int8": b_pad * dim_pad + b_pad * 4},
+        "p50_ms": {"float": float(np.median(times["auto"])), "int8": float(np.median(times["int8"]))},
+        "batcher_dispatches": dispatches,
+        "launches": {name: n for name, n in launches.items() if n},
+    }
+    return out, launches
+
+
+async def tools_phase(dev) -> tuple[dict, dict]:
+    """Phase 18: the golden eval's three routes, the int8 query wire, and
+    two benchmark tools as subprocesses, on the card. The cyclic garbage
+    collector is off for the phase, as for phase 17."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        return await _tools_stages(dev)
+    finally:
+        if enabled:
+            gc.enable()
+
+
+async def _tools_stages(dev) -> tuple[dict, dict]:
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev)
+    out: dict = {"phase": 18, "name": "tools", "device": name}
+    evals = await golden_eval_routes(dev.type)
+    for name, run in evals.items():
+        require(run["rc"] == 0, f"phase 18 (a): the golden eval on the {name} route: {run}")
+    out["a_golden_eval"] = evals
+    out["b_int8_wire"], launches = await int8_wire_check(dev)
+    env = dict(os.environ)
+    with tempfile.TemporaryDirectory() as tmp:
+        vec = await run_cli(["typeagent_tpu_torch.tools.benchmark_vectorstore", "--sizes", "100000",
+                             "--iterations", "10", "--batch", "1", "256", "--device", "cuda"],
+                            os.path.join(tmp, "bench_vectorstore.log"), env, timeout=300)
+        serve = await run_cli(["typeagent_tpu_torch.tools.benchmark_serve", "--rows", "1000000", "--r", "8",
+                               "--wire", "int8", "--device", "cuda"],
+                              os.path.join(tmp, "bench_serve.log"), env, timeout=300)
+    out["c_tools"] = {"benchmark_vectorstore": {**cli_ran("phase 18 (c) benchmark_vectorstore", vec),
+                                                "tail": vec["tail"][-4:]},
+                      "benchmark_serve": {**cli_ran("phase 18 (c) benchmark_serve --wire int8", serve),
+                                          "tail": serve["tail"][-6:]}}
+    out["phase_s"] = round(time.perf_counter() - t0, 3)
+    return out, launches
+
+
 def main() -> int:
     import argparse
 
@@ -2426,6 +2627,7 @@ def main() -> int:
     parser.add_argument("--turns", type=int, default=POD_TURNS, help="phase 16's turns per podcast archive")
     parser.add_argument("--mesh", action="store_true",
                         help="build the kernels and run phase 17 alone (its own references)")
+    parser.add_argument("--tools", action="store_true", help="build the kernels and run phase 18 alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on the card", file=sys.stderr)
@@ -2452,6 +2654,14 @@ def main() -> int:
         out17, _ = asyncio.run(mesh_phase(torch.device("cuda", 0)))
         out17.update({"nvidia_smi": smi_line(), "ok": True})
         emit(out17)
+        return 0
+    if args.tools:
+        print(smi_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _build.kernels()
+        out18, _ = asyncio.run(tools_phase(torch.device("cuda", 0)))
+        out18.update({"nvidia_smi": smi_line(), "ok": True})
+        emit(out18)
         return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3853,6 +4063,14 @@ def main() -> int:
     out17.update({"nvidia_smi": smi_line(), "ok": True})
     emit(out17)
 
+    # 18. the tools: the golden eval's three routes, the int8 query wire,
+    # two benchmark tools as subprocesses.
+    torch.cuda.empty_cache()
+    out18, counts18 = asyncio.run(tools_phase(dev))
+    add_path_launches(counts18)
+    out18.update({"nvidia_smi": smi_line(), "ok": True})
+    emit(out18)
+
     # --------------------------------------------------------------- summary
     for name in ENTRIES:
         require(path_launches[name] > 0, f"no main path launched the {name} kernel")
@@ -3890,4 +4108,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    # Once the result is printed, skip the interpreter's teardown, which
+    # took ~30 s on the card after the last line (the earlier phases' live
+    # objects, millions of them in reference cycles, and idle worker
+    # threads). Every subprocess has been waited for by now.
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

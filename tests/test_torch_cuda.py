@@ -1041,3 +1041,35 @@ def test_sqlite_conversation_reopened_on_cuda_finds_its_messages(dev, monkeypatc
     assert counts["bucket_maxima"] >= len(probes) and counts["rescore"] >= len(probes), counts
     for i, got in zip(probes, hits):
         assert got[0].message_ordinal == i and abs(got[0].score - 1.0) <= 2e-6
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_golden_eval_on_cuda(dev):
+    """``eval_golden.run_eval`` on the card against the committed goldens,
+    on the device engine, the host VM and approx lookups (phase 18 (a))."""
+    import asyncio
+
+    routes = asyncio.run(_chip_smoke().golden_eval_routes("cuda"))
+    assert {name: run["rc"] for name, run in routes.items()} == {"engine": 0, "host_vm": 0, "approx": 0}, routes
+
+
+def test_int8_wire_through_batcher_on_cuda(dev):
+    """The int8 query wire on a 262,144-row bf16 store (past
+    EXACT2_MIN_ROWS: K2 + K3), sync and through ``LookupBatcher``, against
+    the float wire and the plain f32 top-k of the dequantized queries
+    (phase 18 (b) at a quarter of its rows; it fails inside on any miss)."""
+    import asyncio
+
+    out, launches = asyncio.run(_chip_smoke().int8_wire_check(dev, n_rows=262_144))
+    assert out["recall_at_k_int8_vs_float"] >= 0.95
+    assert launches["bucket_maxima"] > 0 and launches["rescore"] > 0
+    assert out["upload_bytes_per_batch"] == {"float": 393_216, "int8": 98_304 + 1_024}

@@ -468,3 +468,54 @@ def test_mcp_server_without_a_card_refuses_to_start(tmp_path):
                 stdin="")
     assert proc.returncode != 0
     assert "no CUDA device is available" in proc.stderr and not proc.stdout.strip()
+
+
+def test_package_has_the_tool_modules():
+    for name in (
+        "typeagent_tpu_torch.tools.eval_golden",
+        "typeagent_tpu_torch.tools.compare_evals",
+        "typeagent_tpu_torch.tools.eval_episode53",
+        "typeagent_tpu_torch.tools.chat_sessions",
+        "typeagent_tpu_torch.tools.get_keys",
+        "typeagent_tpu_torch.tools.rest",
+        "typeagent_tpu_torch.tools.mail.dump_gmail",
+        "typeagent_tpu_torch.tools.mail.dump_outlook",
+        "typeagent_tpu_torch.tools.benchmark_embeddings",
+        "typeagent_tpu_torch.tools.benchmark_engine",
+        "typeagent_tpu_torch.tools.benchmark_pipeline",
+        "typeagent_tpu_torch.tools.benchmark_query",
+        "typeagent_tpu_torch.tools.benchmark_semref_writes",
+        "typeagent_tpu_torch.tools.benchmark_serve",
+        "typeagent_tpu_torch.tools.benchmark_vectorstore",
+    ):
+        assert name in MODULES
+
+
+def test_tools_run_without_jax_pydantic_httpx_azure(tmp_path):
+    """The golden eval (all 13 queries against the committed goldens), the
+    eval comparison, the serving benchmark on the int8 wire and the cloud
+    tools' imports, each as ``python -m`` on the CPU, with JAX, pydantic,
+    httpx, azure and ``typeagent_tpu`` unimportable."""
+    import json
+
+    proc = _cli(["eval_golden", "--device", "cpu"], tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "All 13 golden queries match" in proc.stdout
+    runs = tmp_path / "run.json"
+    runs.write_text(json.dumps([{"question": "Q", "answer": "A", "hasNoAnswer": False}]))
+    proc = _cli(["compare_evals", str(runs), "--color", "never"], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "all-answered rows: 0" in proc.stdout
+    proc = _cli(["benchmark_serve", "--rows", "2000", "--dim", "32", "--batch", "8", "--r", "2",
+                 "--wire", "int8", "--device", "cpu"], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    assert "stream:" in proc.stdout
+    code = _GUARD + (
+        "from typeagent_tpu_torch.tools import get_keys, chat_sessions, eval_episode53\n"
+        "from typeagent_tpu_torch.tools.mail import dump_gmail, dump_outlook\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                          cwd=str(tmp_path), timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

@@ -16,7 +16,8 @@ settings-less ``FakeConversation`` carries ``settings.device`` = cpu for the
 device query engine. Stage 3 runs on the port's default engine, the device
 engine on CPU tensors, as the JAX suites run on theirs.
 
-The tests the port cannot run are in :data:`EXCLUDED`, each with its reason.
+The tests the port cannot run are in :data:`EXCLUDED`, each with its reason;
+:data:`REWRITE` names the source texts adapted, with why.
 :func:`mirror` is shared with ``test_torch_engine_suites.py``.
 """
 
@@ -32,6 +33,7 @@ import torch
 from _pytest import fixtures
 
 from typeagent_tpu_torch.ops.postings import DevicePostingsIndex
+from typeagent_tpu_torch.tools import eval_episode53
 from typeagent_tpu_torch.vectorstore import TextEmbeddingIndexSettings
 
 TESTS = pathlib.Path(__file__).resolve().parent
@@ -48,21 +50,19 @@ SUITES = (
     "test_serialization_matrix.py",
     "test_canned_replay.py",
 )
-_CANNED_INTEGRATION = "# Integration: 4-stage replay vs committed goldens"
 EXCLUDED = {
-    ("test_canned_replay.py", "test_four_stage_replay_matches_answer_goldens"): (
-        "needs the reference Episode-53 corpus (needs_corpus; it skips in the JAX "
-        "run too, the corpus is not in the repository) and the eval tool "
-        "typeagent_tpu/tools/eval_episode53.py (ROADMAP.md Queue 1 item 13)"
-    ),
     ("test_serialization_matrix.py", "TestObjectSerialization.test_non_pydantic_raises_type_error"): (
         "asserts pydantic's error text ('Pydantic dataclass'); the port has no "
         "pydantic and raises the same TypeError with its own words ('camelCase "
         "dataclass'), which test_torch_structured.py checks"
     ),
-    ("test_canned_replay.py", "test_query_entrypoint_runs_all_four_stages"): (
-        "needs the reference Episode-53 corpus (needs_corpus; it skips in the JAX "
-        "run too) and the eval tool (ROADMAP.md Queue 1 item 13)"
+}
+# The Episode-53 conversation of the canned replay's integration half is
+# built on the port's default device, the card: the mirror names the CPU.
+# (Those tests need the reference corpus and skip without it, as in JAX.)
+REWRITE = {
+    "test_canned_replay.py": (
+        ("ev.load_episode53_conversation()", 'ev.load_episode53_conversation(device="cpu")'),
     ),
 }
 
@@ -79,12 +79,10 @@ def _source(suite: str, drop: tuple[str, ...] = (), rewrite: tuple[tuple[str, st
         # needs), each occurrence.
         assert old in src, (suite, old)
         src = src.replace(old, new)
-    if suite == "test_canned_replay.py":
-        # The unit half only: the integration half loads the reference
-        # corpus through the eval tool at import (see EXCLUDED).
-        src = src[: src.index(_CANNED_INTEGRATION)]
-        src = src.replace("from typeagent_tpu.tools import eval_episode53 as ev\n", "")
-        src = src.rstrip().rstrip("#-\n ") + "\n"
+    # The suites name the reference repository's test data by an absolute
+    # path; the port reads it only where $TYPEAGENT_REFERENCE_TESTDATA says.
+    src = re.sub(r'"/[^"]*/reference/tests/testdata/([^"]*)"', r'_reference_file("\1")', src)
+    assert "/reference/tests/testdata/" not in src, suite
     src = re.sub(r"\btypeagent_tpu\b", "typeagent_tpu_torch", src)
     src = re.sub(r"\bfrom tests\.(test_\w+) import", r"from port_mirror_\1 import", src)
     src = re.sub(r"ConversationSettings\(\s*model=", 'ConversationSettings(device="cpu", model=', src)
@@ -96,6 +94,7 @@ def _load(suite: str, drop: tuple[str, ...] = (), rewrite: tuple[tuple[str, str]
     module = types.ModuleType(name)
     module.__file__ = str(TESTS / suite)
     sys.modules[name] = module
+    module._reference_file = reference_file
     exec(compile(_source(suite, drop, rewrite), f"<{suite} against typeagent_tpu_torch>", "exec"), module.__dict__)
     # The suites build embedding settings and postings indexes with the
     # default device, and conversations without settings.
@@ -105,6 +104,14 @@ def _load(suite: str, drop: tuple[str, ...] = (), rewrite: tuple[tuple[str, str]
     if "FakeConversation" in vars(module) and _own(module, module.FakeConversation):
         module.FakeConversation.settings = types.SimpleNamespace(device=torch.device("cpu"))
     return module
+
+
+def reference_file(name: str) -> str:
+    """A file of the reference repository's test data under
+    ``$TYPEAGENT_REFERENCE_TESTDATA``. Unset, a path in this checkout that
+    does not exist, so the suites that need the file skip and nothing
+    outside the checkout is read."""
+    return eval_episode53.reference_file(name) or str(TESTS / "reference-testdata-unset" / name)
 
 
 def _is_fixture(obj) -> bool:
@@ -184,7 +191,7 @@ def check_mirrored(suites, excluded: dict, mirrored: dict[str, list[str]]) -> No
     assert all(reason for reason in excluded.values())
 
 
-MIRRORED = mirror(SUITES, EXCLUDED, globals())
+MIRRORED = mirror(SUITES, EXCLUDED, globals(), rewrite=REWRITE)
 
 
 def test_every_suite_test_is_mirrored_or_excluded():

@@ -10,7 +10,8 @@ reason; :data:`DROPPED` names the module-level imports taken out for them
 (none since the email domain and the mail tools were ported). The email
 CLI's ``ingest_emails`` builds its settings on the port's default device,
 the card, so the suites see it with ``device="cpu"``, as they see
-``TextEmbeddingIndexSettings``.
+``TextEmbeddingIndexSettings``; :data:`REWRITE` does the same for the
+chat-sessions tool's ``ingest_session``.
 """
 
 import functools
@@ -33,8 +34,10 @@ SUITES = (
     "test_property_laws.py",
 )
 _MAIL = (
-    "tools/mail/dump_gmail.py and dump_outlook.py reach cloud mail APIs and are "
-    "not ported yet (ROADMAP.md Queue 1 item 13)"
+    "feeds its pages to httpx through httpx.MockTransport; the port's mail "
+    "dumpers speak REST through http.client (tools/rest.py), so its "
+    "counterpart, test_torch_cloud_tools.py::test_tools__<this test's name>, "
+    "serves the same pages from a loopback fake and asserts the same things"
 )
 DROPPED: dict[str, tuple[str, ...]] = {}
 _NO_SETTINGS = (
@@ -57,18 +60,16 @@ EXCLUDED = {
     ("test_tools.py", "test_outlook_device_code_flow"): _MAIL,
     ("test_tools.py", "test_gmail_cached_token_respects_short_expiry"): _MAIL,
     ("test_tools.py", "test_outlook_safe_name_no_collisions_on_long_ids"): _MAIL,
-    ("test_tools.py", "test_compare_evals_grid"): (
-        "tools/compare_evals.py, an eval tool, is not ported (ROADMAP.md Queue 1 item 13)"
-    ),
-    ("test_tools.py", "test_chat_sessions_parse_and_ingest"): (
-        "tools/chat_sessions.py is not ported (ROADMAP.md Queue 1 item 13)"
-    ),
-    ("test_tools.py", "test_chat_sessions_rejects_non_sessions"): (
-        "tools/chat_sessions.py is not ported (ROADMAP.md Queue 1 item 13)"
-    ),
 }
 
-MIRRORED = mirror(SUITES, EXCLUDED, globals(), DROPPED)
+# ingest_session builds its settings on the port's default device, the
+# card: the two calls of the chat-sessions test name the CPU.
+REWRITE = {
+    "test_tools.py": (
+        ("await ingest_session(session, db, None)", 'await ingest_session(session, db, None, device="cpu")'),
+    ),
+}
+MIRRORED = mirror(SUITES, EXCLUDED, globals(), DROPPED, REWRITE)
 sys.modules["port_mirror_test_tools"].ingest_emails = functools.partial(ingest_emails, device="cpu")
 
 

@@ -360,8 +360,11 @@ def test_settings_refuse_unported_modes_and_missing_device(monkeypatch):
     model = create_test_embedding_model(8)
     for mode in ("approx", "ivf"):  # ported
         assert TextEmbeddingIndexSettings(embedding_model=model, device="cpu", search_mode=mode).search_mode == mode
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TextEmbeddingIndexSettings(embedding_model=model, device="cpu", query_wire="int8", dtype="bfloat16")
+    # The int8 query wire (ported): taken on a bf16 store, refused on others.
+    wire = TextEmbeddingIndexSettings(embedding_model=model, device="cpu", query_wire="int8", dtype="bfloat16")
+    assert wire.query_wire == "int8"
+    with pytest.raises(ValueError, match="bfloat16"):
+        TextEmbeddingIndexSettings(embedding_model=model, device="cpu", query_wire="int8")
     # A mesh (ported): the settings take it and its first device; anything
     # else raises.
     from typeagent_tpu_torch.parallel import create_mesh

@@ -872,15 +872,19 @@ def cosine_scores(emb: torch.Tensor, queries: torch.Tensor, count: int) -> torch
 def _topk_materialized(
     scores: torch.Tensor, k: int, rowmask: torch.Tensor | None = None
 ):
-    """k > 32: ``torch.topk`` over a materialized ``[b, n]`` score matrix
-    (the JAX package's own non-Pallas route); masked slots score -1. With
-    a ``rowmask``, rows whose entry is not > 0 score -1 too and invalid
-    slots carry index -1, as the JAX masked routes return them."""
+    """k > 32: the top k of a materialized ``[b, n]`` score matrix (the
+    JAX package's own non-Pallas route, ``lax.top_k``); masked slots score
+    -1. Equal scores keep the lowest row first, as ``lax.top_k`` does: a
+    stable descending sort, since ``torch.topk`` leaves the order of ties
+    unspecified, and rows with one embedding (the same text twice) tie
+    exactly. With a ``rowmask``, rows whose entry is not > 0 score -1 too
+    and invalid slots carry index -1, as the JAX masked routes return
+    them."""
     MATERIALIZED_CALLS.add()
     if rowmask is not None:
         scores = scores.masked_fill(~(rowmask.reshape(1, -1) > 0), _NEG)
-    vals, idx = torch.topk(scores, k, dim=1)
-    idx = idx.to(torch.int32)
+    vals, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :k].contiguous(), idx[:, :k].to(torch.int32)
     if rowmask is not None:
         idx = torch.where(vals >= 0.0, idx, -1)
     return vals, idx

@@ -1,12 +1,17 @@
-"""Command-line tools: query REPL, ingestion, repair and health checks.
+"""Command-line tools: query REPL, ingestion, repair and health checks,
+evals, benchmarks and key sync.
 
-The port of ``typeagent_tpu/tools/``: ``ingest_vtt``, ``ingest_podcast``,
-``ingest_email``, ``load_json``, ``query``, ``reextract``, ``doctor`` and
-``mail/`` (``dump_mbox``, ``print_timestamps``, which touch no device).
-Each that builds a conversation takes ``--device {cuda,cpu}``,
-the port's counterpart of the JAX package's platform setting: where the
-conversation's embedding indexes live (the card unless ``cpu`` is named;
-without a card the settings raise).
+The port of ``typeagent_tpu/tools/``, every module of it: ``ingest_vtt``,
+``ingest_podcast``, ``ingest_email``, ``load_json``, ``query``,
+``reextract``, ``doctor``, ``chat_sessions``, the evals ``eval_golden``,
+``eval_episode53`` and ``compare_evals``, the seven ``benchmark_*`` tools,
+``get_keys`` and ``mail/`` (``dump_mbox``, ``print_timestamps``,
+``dump_gmail``, ``dump_outlook``). The cloud tools speak REST through
+``rest.py`` (the standard library's ``http.client``). Each tool that
+builds a conversation or a store takes ``--device {cuda,cpu}``, the
+port's counterpart of the JAX package's platform setting: where the
+embedding indexes live (the card unless ``cpu`` is named; without a card
+the settings raise).
 """
 
 import argparse

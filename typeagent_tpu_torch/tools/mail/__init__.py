@@ -1,6 +1,7 @@
 """Mail dumpers: mailbox exports -> .eml files for ingest_email.
 
 The port of ``typeagent_tpu/tools/mail/``: ``dump_mbox`` and
-``print_timestamps``. The Gmail and Outlook dumpers, which reach cloud
-APIs, are not ported yet (ROADMAP.md Queue 1).
+``print_timestamps`` (local files), ``dump_gmail`` (the Gmail REST API) and
+``dump_outlook`` (Microsoft Graph), the last two over ``tools/rest.py``.
+None touches a device.
 """

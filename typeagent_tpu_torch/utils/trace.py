@@ -64,3 +64,7 @@ def span(name: str, **attributes: Any) -> Iterator[Span]:
                 else ""
             )
             logger.debug("%s %.2fms%s", current.path, current.duration_ms, attrs)
+
+
+def current_span() -> Span | None:
+    return _current_span.get()

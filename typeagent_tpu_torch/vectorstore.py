@@ -82,10 +82,6 @@ _ESCALATE_MIN_YIELD = 0.5
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
 _SEARCH_MODES = ("exact", "exact1", "exact2", "approx", "ivf")
-# ROADMAP.md Queue 1 items that port the settings this store refuses.
-_NOT_PORTED = {
-    "query_wire": "query_wire='int8' (ROADMAP.md Queue 1 item 7)",
-}
 
 
 def get_default_min_score(model_name: str) -> float:
@@ -193,12 +189,10 @@ class TextEmbeddingIndexSettings:
             raise ValueError(f"search_mode={search_mode!r} supports float32/bfloat16 stores only")
         if search_mode not in _SEARCH_MODES:
             raise ValueError(f"unknown search_mode {search_mode!r}")
+        if query_wire not in ("auto", "int8"):
+            raise ValueError(f"unknown query_wire {query_wire!r}")
         if query_wire == "int8" and dtype != "bfloat16":
             raise ValueError("query_wire='int8' requires dtype='bfloat16'")
-        if query_wire == "int8":
-            raise NotImplementedError(_NOT_PORTED["query_wire"])
-        if query_wire != "auto":
-            raise ValueError(f"unknown query_wire {query_wire!r}")
         if mesh is not None:
             from .parallel.mesh import Mesh
 
@@ -244,6 +238,43 @@ class TextEmbeddingIndexSettings:
         self.ivf_auto_rebuild = False
         self.query_wire = query_wire
         self.device = device
+
+
+def _dequant_queries(qi: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """int8-wire queries -> bf16 on the device, scales broadcast per query,
+    rounded as the JAX package rounds them: the scale cast to bf16 first,
+    then one bf16 product. ``qi``: ``[..., d]`` int8, ``scales``: ``[...]``."""
+    return qi.to(torch.bfloat16) * scales.to(torch.bfloat16)[..., None]
+
+
+def _quantize_queries_host(q: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-query symmetric int8 quantization (the query twin of
+    ``ops.topk.quantize_rows``); q: [..., d] f32 -> (int8 [..., d],
+    scales [...] f32)."""
+    amax = np.abs(q).max(axis=-1)
+    scales = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    qi = np.clip(np.round(q / scales[..., None]), -127, 127).astype(np.int8)
+    return qi, scales
+
+
+def _int8_wire_upload(
+    queries: np.ndarray, shape: tuple[int, ...], size: int, device: torch.device
+) -> torch.Tensor:
+    """Upload queries ``[..., b, size]`` as int8 codes + per-query f32
+    scales (a quarter of the f32 bytes) into zero-padded ``shape`` (``[...,
+    b_pad, dim_pad]``) and dequantize on the device. Zero-padded slots
+    carry scale 0, so they dequantize to the zero rows the float wire pads
+    with. The bf16 product is widened to f32, the kernels' query dtype:
+    their own cast to the bf16 store then loses nothing, so the scores are
+    the JAX wire's."""
+    q = np.asarray(queries, dtype=np.float32)
+    b = q.shape[-2]
+    qi = np.zeros(shape, dtype=np.int8)
+    sc = np.zeros(shape[:-1], dtype=np.float32)
+    qi[..., :b, :size], sc[..., :b] = _quantize_queries_host(q)
+    return _dequant_queries(
+        torch.from_numpy(qi).to(device), torch.from_numpy(sc).to(device)
+    ).float()
 
 
 def _bucket(n: int, buckets=_QUERY_BUCKETS) -> int:
@@ -611,8 +642,13 @@ class VectorStore:
 
     def _pad_queries(self, queries: np.ndarray) -> torch.Tensor:
         """Upload queries as f32 ``[b_pad, dim_pad]`` (zero padding); the
-        kernels cast them to the store dtype on the device."""
+        kernels cast them to the store dtype on the device. An int8-wire
+        store uploads int8 codes and scales instead."""
         b = queries.shape[0]
+        if self.settings.query_wire == "int8":
+            return _int8_wire_upload(
+                queries, (_bucket(b), self._dim_pad), self._embedding_size, self._device
+            )
         out = np.zeros((_bucket(b), self._dim_pad), dtype=np.float32)
         out[:b, : self._embedding_size] = queries
         return torch.from_numpy(out).to(self._device)
@@ -1063,9 +1099,14 @@ class VectorStore:
         with self._dispatch_view() as (buf, scales, count):
             if count == 0 or r_n == 0 or b == 0:
                 return [[[] for _ in range(b)] for _ in range(r_n)]
-            padded = np.zeros((r_n, _bucket(b), self._dim_pad), dtype=np.float32)
-            padded[:, :b, : self._embedding_size] = qb
-            q_dev = torch.from_numpy(padded).to(self._device)
+            if self.settings.query_wire == "int8":
+                q_dev = _int8_wire_upload(
+                    qb, (r_n, _bucket(b), self._dim_pad), self._embedding_size, self._device
+                )
+            else:
+                padded = np.zeros((r_n, _bucket(b), self._dim_pad), dtype=np.float32)
+                padded[:, :b, : self._embedding_size] = qb
+                q_dev = torch.from_numpy(padded).to(self._device)
             k = min(max_hits, count)
             state = self._ivf
             if not self._quantized and self.settings.search_mode == "ivf" and state is not None:
