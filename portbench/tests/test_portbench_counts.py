@@ -1,0 +1,60 @@
+"""The roofline's counts against hand-worked cases."""
+
+from __future__ import annotations
+
+import pytest
+
+from portbench.roofline import counts
+
+
+def test_k2_over_the_ada_shadow_is_bound_by_its_read():
+    peak = counts.peaks()
+    w = counts.bucket_maxima_bf16(5_000_000, 1536)
+    assert w.bytes == pytest.approx(15.36e9, rel=1e-3)  # the shadow, plus one query's maxima
+    assert w.bound_s(peak) == pytest.approx(4.585e-3, rel=1e-3)
+    assert w.bound_side(peak) == "bytes"
+    # Even a full coalesced dispatch (256 queries) stays under the read.
+    assert counts.bucket_maxima_bf16(5_000_000, 1536, b=256).bound_side(peak) == "bytes"
+
+
+def test_k1_over_the_cohere_corpus_is_bound_by_its_operations():
+    peak = counts.peaks()
+    w = counts.scan_f32(64, 10_000_000, 768)
+    assert w.ops == 2 * 64 * 10_000_000 * 768
+    assert w.bound_s(peak) == pytest.approx(14.67e-3, rel=1e-3)
+    assert w.bound_side(peak) == "ops"
+
+
+def test_a_scoped_scan_counts_only_the_rows_in_scope():
+    peak = counts.peaks()
+    whole = counts.scan_f32(64, 10_000_000, 768)
+    scope = counts.scan_f32(64, 1_390_000, 768, mask=True)
+    assert scope.bound_s(peak) == pytest.approx(whole.bound_s(peak) * 0.139, rel=1e-6)
+    assert scope.bytes - counts.scan_f32(64, 1_390_000, 768).bytes == 1_390_000 * 4
+
+
+def test_peaks_are_the_published_h100_sxm_numbers():
+    peak = counts.peaks()
+    assert (peak["bf16_flops"], peak["fp32_flops"], peak["hbm_bytes_per_s"]) == (989e12, 67e12, 3.35e12)
+    assert peak["power_limit_w"] == 700
+
+
+def test_a_scan_share_takes_the_least_bound_of_its_kind_and_needs_no_pairing():
+    from types import SimpleNamespace as NS
+
+    import numpy as np
+
+    from portbench.roofline.scans import scan_roofline
+
+    peak = counts.peaks()
+    cfg, rows = {"dim": 768, "rows": 10_000_000}, {None: 10_000_000, (20, 2000): 9_900_000}
+    one = np.zeros((1, 768), np.float32)
+    reqs = [NS(queries=one, scope=(20, 2000)), NS(queries=one, scope=None), NS(queries=one, scope=(20, 2000))]
+    k4 = counts.scan_f32(1, 9_900_000, 768).bound_s(peak)
+    events = [NS(label="K4", dur_ns=int(2 * k4 * 1e9)), NS(label="merge", dur_ns=10**6),
+              NS(label="K4", dur_ns=int(2 * k4 * 1e9))]  # one K4 the profiler missed
+    ctx = NS(trace=NS(events=events), stretch_requests=reqs, scope_rows=lambda s: rows[s],
+             cell=NS(cfg=cfg, mix={"k": 10}))
+    assert scan_roofline(ctx, "K4") == pytest.approx(50.0, rel=1e-6)
+    assert scan_roofline(ctx, "K1") is None  # a global request, but no K1 launch
+    assert scan_roofline(NS(trace=None), "K4") is None
