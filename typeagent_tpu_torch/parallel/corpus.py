@@ -12,6 +12,14 @@ device, so a scoped search costs the same fused scan as a global one. With
 (exact until then); scoped searches stay exact either way. Port of
 ``typeagent_tpu/parallel/corpus.py``: ``mesh=`` names the devices, and
 without one the corpus is one shard on ``device``.
+
+A search is the span ``corpus.query`` (``utils/trace.py``) over
+``corpus.normalize``, ``corpus.scope`` (scoped searches: the name set and
+the interval table), the matrix's ``corpus.launch`` and ``corpus.fetch``
+(``sharded.py``) and ``corpus.resolve`` (the ``starts`` list and each hit's
+segment). ``METRICS``: ``corpus.searches``; seconds in ``corpus.fetch_s``,
+``corpus.scope_s``, ``corpus.resolve_s`` and ``corpus.host_s`` (normalize,
+scope, launch and resolve: the query less its fetch).
 """
 
 from __future__ import annotations
@@ -23,10 +31,17 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..utils import trace
+from ..utils.metrics import METRICS
 from .mesh import Mesh
 from .sharded import ShardedVectorStore
 
 __all__ = ["CorpusVectorStore", "CorpusHit"]
+
+_QUERY = trace.Site("corpus.query")
+_NORMALIZE = trace.Site("corpus.normalize", "corpus.host_s")
+_SCOPE = trace.Site("corpus.scope", "corpus.scope_s", "corpus.host_s")
+_RESOLVE = trace.Site("corpus.resolve", "corpus.resolve_s", "corpus.host_s")
 
 
 @dataclass
@@ -164,22 +179,27 @@ class CorpusVectorStore:
         other conversations' winners. Queries are unit-normalized here, as
         rows are on append.
         """
-        queries = np.asarray(queries, dtype=np.float32)
-        norms = np.linalg.norm(queries, axis=1, keepdims=True)
-        queries = queries / np.where(norms > 0, norms, 1.0)
-        if conversations is None:
-            raw = self._store.search(queries, k, min_score)
-        else:
-            intervals = self._segment_intervals(set(conversations))
-            if intervals.size == 0:
-                return [[] for _ in range(queries.shape[0])]
-            raw = self._store.search_intervals(queries, intervals, k, min_score)
-        starts = [s.start for s in self._segments]
-        results: list[list[CorpusHit]] = []
-        for per_query in raw:
-            hits: list[CorpusHit] = []
-            for global_ordinal, score in per_query:
-                conversation, local = self._resolve(starts, global_ordinal)
-                hits.append(CorpusHit(conversation, local, global_ordinal, score))
-            results.append(hits)
-        return results
+        with _QUERY():
+            METRICS.incr("corpus.searches")
+            with _NORMALIZE():
+                queries = np.asarray(queries, dtype=np.float32)
+                norms = np.linalg.norm(queries, axis=1, keepdims=True)
+                queries = queries / np.where(norms > 0, norms, 1.0)
+            if conversations is None:
+                raw = self._store.search(queries, k, min_score)
+            else:
+                with _SCOPE():
+                    intervals = self._segment_intervals(set(conversations))
+                if intervals.size == 0:
+                    return [[] for _ in range(queries.shape[0])]
+                raw = self._store.search_intervals(queries, intervals, k, min_score)
+            with _RESOLVE():
+                starts = [s.start for s in self._segments]
+                results: list[list[CorpusHit]] = []
+                for per_query in raw:
+                    hits: list[CorpusHit] = []
+                    for global_ordinal, score in per_query:
+                        conversation, local = self._resolve(starts, global_ordinal)
+                        hits.append(CorpusHit(conversation, local, global_ordinal, score))
+                    results.append(hits)
+            return results

@@ -35,6 +35,11 @@ Routes, as in the JAX package:
     given its slice of the row mask.
 
 ``min_score`` is applied on the device; unfilled slots are (-1, -1).
+
+:meth:`ShardedVectorStore.search` and :meth:`~ShardedVectorStore.search_intervals`,
+the corpus's searches, open the spans ``corpus.launch`` (the query and
+table uploads, every shard's program and the merge; its seconds in
+``METRICS`` ``corpus.host_s``) and ``corpus.fetch`` (``corpus.fetch_s``).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 
 from ..ops import append as append_ops
 from ..ops import topk
+from ..utils import trace
 from ..vectorstore import _fetch, _native_results
 from .mesh import AXIS_DP, AXIS_SHARD, Mesh, single_device_mesh
 
@@ -60,6 +66,9 @@ _INTERVAL_BUCKETS = (8, 32, 128, 512)
 # A shard's rows are whole 128-row buckets (the bucket kernels and the IVF
 # build walk them), so the capacity is a multiple of n_shard * 128.
 _SHARD_ROW_QUANTUM = 128
+
+_LAUNCH = trace.Site("corpus.launch", "corpus.host_s")
+_FETCH = trace.Site("corpus.fetch", "corpus.fetch_s")
 
 
 def _bucket_size(n: int, buckets) -> int:
@@ -517,7 +526,10 @@ class ShardedVectorStore:
         with a snapshot searches it (:meth:`search_ivf`)."""
         if self.search_mode == "ivf" and self._ivf is not None:
             return self.search_ivf(queries, k, min_score)[0]
-        return self.collect_search(self.search_dispatch(queries, k, min_score))
+        with _LAUNCH():
+            handle = self.search_dispatch(queries, k, min_score)
+        with _FETCH():
+            return self.collect_search(handle)
 
     # -- sharded IVF (per-shard learned buckets; parallel/ivf.py) -------------
 
@@ -636,20 +648,22 @@ class ShardedVectorStore:
         b = queries.shape[0]
         if len(intervals) == 0:
             return [[] for _ in range(b)]
-        intervals = np.asarray(intervals, dtype=np.int32).reshape(-1, 2)
-        s_pad = _bucket_size(intervals.shape[0], _INTERVAL_BUCKETS)
-        table = np.zeros((s_pad, 2), dtype=np.int32)
-        table[: intervals.shape[0]] = intervals
-        host = torch.from_numpy(table)
-        with self._view() as count:
-            if count == 0:
-                return [[] for _ in range(b)]
-            on = {dev: host.to(dev) for dev in self.mesh.distinct_devices()}
-            vals, idx = self._search_shards(
-                _shard_interval_topk, queries, min(k, count), min_score, count,
-                lambda i, s: (on[self.mesh.devices[i, s]],),
-            )
-        return self._collect(vals, idx, b)
+        with _LAUNCH():
+            intervals = np.asarray(intervals, dtype=np.int32).reshape(-1, 2)
+            s_pad = _bucket_size(intervals.shape[0], _INTERVAL_BUCKETS)
+            table = np.zeros((s_pad, 2), dtype=np.int32)
+            table[: intervals.shape[0]] = intervals
+            host = torch.from_numpy(table)
+            with self._view() as count:
+                if count == 0:
+                    return [[] for _ in range(b)]
+                on = {dev: host.to(dev) for dev in self.mesh.distinct_devices()}
+                vals, idx = self._search_shards(
+                    _shard_interval_topk, queries, min(k, count), min_score, count,
+                    lambda i, s: (on[self.mesh.devices[i, s]],),
+                )
+        with _FETCH():
+            return self._collect(vals, idx, b)
 
     def scores(self, queries: np.ndarray) -> np.ndarray:
         """Full masked score matrix [b, count] (host-predicate paths)."""

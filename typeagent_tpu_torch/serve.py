@@ -13,16 +13,26 @@ Usage::
     results = await q.lookup(queries)        # [b, d] -> list[list[ScoredInt]]
     ...
     await q.close()
+
+Spans (``utils/trace.py``): ``serve.request`` around each lookup, its child
+``serve.queue`` from enqueue until the worker takes the request's group
+(``METRICS`` ``serve.queue_wait_s`` adds that wait per request), and per
+dispatch ``serve.dispatch`` (attribute ``requests``: its group's request
+ids) with ``serve.stack``, the store's spans (on the executor thread, in a
+copy of the dispatch's context) and ``serve.split``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
+import functools
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from .utils import trace
 from .utils.metrics import METRICS
 from .vectorstore import ScoredInt, VectorStore
 
@@ -35,6 +45,12 @@ __all__ = ["LookupBatcher"]
 # coalesced request. Past the fused kernel's k range they ride alone.
 _COALESCE_K_CAP = 128
 
+_REQUEST = trace.Site("serve.request")
+_QUEUE = trace.Site("serve.queue")
+_DISPATCH = trace.Site("serve.dispatch")
+_STACK = trace.Site("serve.stack")
+_SPLIT = trace.Site("serve.split")
+
 
 @dataclass
 class _Pending:
@@ -42,6 +58,9 @@ class _Pending:
     max_hits: int
     min_score: float
     future: asyncio.Future = field(default_factory=lambda: None)
+    enqueued_ns: int = 0
+    request_id: int | None = None  # while recording
+    queue_span: trace.Span | None = None  # while recording
 
 
 class LookupBatcher:
@@ -106,13 +125,18 @@ class LookupBatcher:
         if self._closed:
             raise RuntimeError("LookupBatcher is closed")
         self._ensure_worker()
-        item = _Pending(
-            np.asarray(queries, dtype=np.float32), max_hits, float(min_score)
-        )
-        item.future = asyncio.get_running_loop().create_future()
-        self._queue.append(item)
-        self._wakeup.set()
-        return await item.future
+        with _REQUEST() as request:
+            item = _Pending(
+                np.asarray(queries, dtype=np.float32), max_hits, float(min_score)
+            )
+            item.future = asyncio.get_running_loop().create_future()
+            if request is not None:
+                item.request_id = request.request_id
+                item.queue_span = _QUEUE.begin()
+            item.enqueued_ns = time.perf_counter_ns()
+            self._queue.append(item)
+            self._wakeup.set()
+            return await item.future
 
     async def close(self) -> None:
         self._closed = True
@@ -151,7 +175,11 @@ class LookupBatcher:
                 # they acquired — replacing it here would let those releases
                 # over-credit the new one and break the inflight cap.
                 self._inflight = asyncio.Semaphore(self._max_inflight)
-            self._task = asyncio.get_running_loop().create_task(self._worker())
+            # In a context of its own: the worker and its dispatches are
+            # no caller's children (a dispatch lists its requests instead).
+            self._task = asyncio.get_running_loop().create_task(
+                self._worker(), context=contextvars.Context()
+            )
 
     # Consecutive idle poll timeouts before the worker exits (respawned by
     # the next lookup): an idle server must not pay per-store 0.5 s wakeups
@@ -196,6 +224,12 @@ class LookupBatcher:
             if not group:
                 self._inflight.release()
                 continue
+            taken = time.perf_counter_ns()
+            METRICS.incr(
+                "serve.queue_wait_s", sum(taken - item.enqueued_ns for item in group) * 1e-9
+            )
+            for item in group:
+                trace.end(item.queue_span, taken)
             task = asyncio.get_running_loop().create_task(
                 self._dispatch_guarded(group, self._inflight)
             )
@@ -227,49 +261,58 @@ class LookupBatcher:
         METRICS.incr("serve.requests", len(group))
         METRICS.incr("serve.dispatches")
         t_dispatch = time.perf_counter()
-        if len(group) == 1:
-            item = group[0]
-            result = await loop.run_in_executor(
+        with _DISPATCH() as dispatch:
+            if dispatch is not None:
+                dispatch.set(requests=[item.request_id for item in group])
+            # The store's spans, on the executor thread, have this one as parent.
+            run = contextvars.copy_context().run
+            if len(group) == 1:
+                item = group[0]
+                result = await loop.run_in_executor(
+                    None,
+                    run,
+                    functools.partial(
+                        self._store.fuzzy_lookup_embeddings_batch,
+                        item.queries, max_hits=item.max_hits, min_score=item.min_score,
+                    ),
+                )
+                with _SPLIT():
+                    if not item.future.done():  # caller may have been cancelled
+                        item.future.set_result(result)
+                METRICS.observe("serve.dispatch", time.perf_counter() - t_dispatch)
+                return
+            with _STACK():
+                b_max = max(item.queries.shape[0] for item in group)
+                d = group[0].queries.shape[1]
+                k_max = max(item.max_hits for item in group)
+                stacked = np.zeros((len(group), b_max, d), dtype=np.float32)
+                for i, item in enumerate(group):
+                    if item.queries.shape[1] != d:
+                        raise ValueError(
+                            f"Mixed embedding dims in one batcher: {item.queries.shape[1]} vs {d}"
+                        )
+                    stacked[i, : item.queries.shape[0]] = item.queries
+            # One dispatch; per-request min_score/max_hits applied on the slice.
+            many = await loop.run_in_executor(
                 None,
-                lambda: self._store.fuzzy_lookup_embeddings_batch(
-                    item.queries, max_hits=item.max_hits, min_score=item.min_score
+                run,
+                functools.partial(
+                    self._store.fuzzy_lookup_embeddings_many, stacked, max_hits=k_max, min_score=0.0
                 ),
             )
-            if not item.future.done():  # caller may have been cancelled
-                item.future.set_result(result)
             METRICS.observe("serve.dispatch", time.perf_counter() - t_dispatch)
-            return
-        b_max = max(item.queries.shape[0] for item in group)
-        d = group[0].queries.shape[1]
-        k_max = max(item.max_hits for item in group)
-        stacked = np.zeros((len(group), b_max, d), dtype=np.float32)
-        for i, item in enumerate(group):
-            if item.queries.shape[1] != d:
-                raise ValueError(
-                    f"Mixed embedding dims in one batcher: {item.queries.shape[1]} vs {d}"
-                )
-            stacked[i, : item.queries.shape[0]] = item.queries
-        # One dispatch; per-request min_score/max_hits applied on the slice.
-        many = await loop.run_in_executor(
-            None,
-            lambda: self._store.fuzzy_lookup_embeddings_many(
-                stacked, max_hits=k_max, min_score=0.0
-            ),
-        )
-        METRICS.observe("serve.dispatch", time.perf_counter() - t_dispatch)
-        for i, item in enumerate(group):
-            rows = many[i][: item.queries.shape[0]]
-            if item.min_score <= 0.0 and item.max_hits >= k_max:
-                # Scores are clipped to [0, 1] and the shared dispatch used
-                # k_max, so the per-record refilter would be a no-op — skip
-                # re-walking every record (2,560/batch at b=256, k=10).
-                out = rows
-            else:
-                out = [
-                    [s for s in row if s.score >= item.min_score][: item.max_hits]
-                    for row in rows
-                ]
-            if not item.future.done():  # caller may have been cancelled
-                item.future.set_result(out)
-
-
+            with _SPLIT():
+                for i, item in enumerate(group):
+                    rows = many[i][: item.queries.shape[0]]
+                    if item.min_score <= 0.0 and item.max_hits >= k_max:
+                        # Scores are clipped to [0, 1] and the shared dispatch used
+                        # k_max, so the per-record refilter would be a no-op — skip
+                        # re-walking every record (2,560/batch at b=256, k=10).
+                        out = rows
+                    else:
+                        out = [
+                            [s for s in row if s.score >= item.min_score][: item.max_hits]
+                            for row in rows
+                        ]
+                    if not item.future.done():  # caller may have been cancelled
+                        item.future.set_result(out)

@@ -1,12 +1,15 @@
-"""First-class metrics: latency percentiles, QPS, recall@k.
+"""First-class metrics: counters, latency percentiles, recall@k.
 
 The reference has only print-based timing (SURVEY.md §5); this registry is a
 lightweight process-local metrics layer for the serving/bench paths.
+Counters are added to from the serving path's executor threads, so
+:meth:`MetricsRegistry.incr` holds a lock.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import time
 from collections.abc import Iterator
 from collections import defaultdict
@@ -24,10 +27,6 @@ class LatencyStats:
     max_ms: float
 
     @property
-    def qps(self) -> float:
-        return self.count / self.total_s if self.total_s > 0 else 0.0
-
-    @property
     def mean_ms(self) -> float:
         return self.total_s / self.count * 1000 if self.count else 0.0
 
@@ -38,9 +37,11 @@ class MetricsRegistry:
 
     counters: dict[str, float] = field(default_factory=lambda: defaultdict(float))
     latencies: dict[str, list[float]] = field(default_factory=lambda: defaultdict(list))
+    _lock: threading.Lock = field(default_factory=threading.Lock, repr=False, compare=False)
 
     def incr(self, name: str, value: float = 1.0) -> None:
-        self.counters[name] += value
+        with self._lock:  # a read-modify-write, from several threads
+            self.counters[name] += value
 
     def observe(self, name: str, seconds: float) -> None:
         self.latencies[name].append(seconds)
@@ -79,7 +80,6 @@ class MetricsRegistry:
             if s:
                 out["latency"][name] = {
                     "count": s.count,
-                    "qps": round(s.qps, 2),
                     "mean_ms": round(s.mean_ms, 3),
                     "p50_ms": round(s.p50_ms, 3),
                     "p90_ms": round(s.p90_ms, 3),

@@ -32,6 +32,14 @@ default, runs the kernels and raises where there is no CUDA device. With
 as in the JAX package: lookups run every shard's one-phase scan (approx
 and IVF per shard where asked) and merge, and the host-side pending and
 scoring semantics stay those of the one-device store.
+
+The one-device lookups (:meth:`VectorStore.fuzzy_lookup_embeddings_batch`
+and ``_many``) open the spans ``store.upload``, ``store.launch``,
+``store.fetch``, ``store.cert_rerun`` (on a miss) and ``store.materialize``
+(``utils/trace.py``), and count into ``METRICS``: ``vectorstore.dispatches``,
+``vectorstore.queries`` (the queries handed in), ``vectorstore.query_slots``
+(rows launched after bucket padding), ``vectorstore.fetch_s`` (time in
+``store.fetch``) and ``vectorstore.host_s`` (time in the other four).
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import torch
 
 from . import native as _native_mod
 from .ops import _build, append, ivf, topk
+from .utils import trace
 from .utils.metrics import METRICS
 
 if TYPE_CHECKING:
@@ -62,6 +71,12 @@ MODEL_DEFAULT_MIN_SCORES: dict[str, float] = {
     "text-embedding-3-small": 0.73,
     "text-embedding-ada-002": 0.93,
 }
+
+_UPLOAD = trace.Site("store.upload", "vectorstore.host_s")
+_LAUNCH = trace.Site("store.launch", "vectorstore.host_s")
+_FETCH = trace.Site("store.fetch", "vectorstore.fetch_s")
+_CERT_RERUN = trace.Site("store.cert_rerun", "vectorstore.host_s")
+_MATERIALIZE = trace.Site("store.materialize", "vectorstore.host_s")
 
 _QUERY_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
 _SUBSET_MIN_BUCKET = 64
@@ -282,6 +297,12 @@ def _bucket(n: int, buckets=_QUERY_BUCKETS) -> int:
         if n <= b:
             return b
     return append.round_up(n, buckets[-1])
+
+
+def _count_dispatch(queries: int, slots: int) -> None:
+    METRICS.incr("vectorstore.dispatches")
+    METRICS.incr("vectorstore.queries", queries)
+    METRICS.incr("vectorstore.query_slots", slots)
 
 
 def _ivf_suffix_merged(
@@ -721,20 +742,29 @@ class VectorStore:
         with self._dispatch_view() as (buf, scales, count):
             if count == 0 or b == 0:
                 return [[] for _ in range(b)]
-            q = self._pad_queries(queries)
-            if predicate is not None:
-                scores_dev = self._all_scores(q, buf, scales, count)
-            else:
-                k = min(max_hits, count)
-                vals, idx, cert = self._topk_dispatch(q, k, buf, scales, count)
+            _count_dispatch(b, _bucket(b))
+            with _UPLOAD():
+                q = self._pad_queries(queries)
+            with _LAUNCH():
+                if predicate is not None:
+                    scores_dev = self._all_scores(q, buf, scales, count)
+                else:
+                    k = min(max_hits, count)
+                    vals, idx, cert = self._topk_dispatch(q, k, buf, scales, count)
         if predicate is not None:
-            return _predicate_rows(scores_dev[:b].cpu().numpy(), max_hits, min_score, predicate)
-        if cert is None:
-            vals, idx = _fetch(vals, idx)
-        else:
-            vals, idx, cert_h = _fetch(vals, idx, cert)
+            with _FETCH():
+                scores = scores_dev[:b].cpu().numpy()
+            with _MATERIALIZE():
+                return _predicate_rows(scores, max_hits, min_score, predicate)
+        with _FETCH():
+            if cert is None:
+                vals, idx = _fetch(vals, idx)
+            else:
+                vals, idx, cert_h = _fetch(vals, idx, cert)
+        if cert is not None:
             vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b, b)
-        return _materialize_rows(vals, idx, b, min_score)
+        with _MATERIALIZE():
+            return _materialize_rows(vals, idx, b, min_score)
 
     def _lookup_sharded(self, queries, max_hits: int, min_score: float, predicate):
         """Mesh mode's batched lookup: the sharded store's score matrix for
@@ -865,42 +895,43 @@ class VectorStore:
         METRICS.incr("vectorstore.cert_misses", miss.size)
         if miss.size == 0:
             return vals, idx
-        vals = np.array(vals)
-        idx = np.array(idx)
-        state, ema = self._ivf, self._esc_ema
-        if (
-            count >= _ESCALATE_MIN_ROWS
-            and 2 * miss.size <= n_queries
-            and self.settings.search_mode == "ivf"
-            and state is not None
-            and (ema is None or ema >= _ESCALATE_MIN_YIELD)
-        ):
-            b0 = min(self.settings.ivf_b, state.n_buckets)
-            b_esc = min(4 * max(b0, 1), state.n_buckets)
-            if b_esc > b0:
-                sub = self._pad_query_rows(q[torch.from_numpy(miss).to(q.device)])
-                out = self._rerun_ivf(sub, k, count, b_esc, state)
-                if out is not None:
-                    v2, i2, c2 = out
-                    m = miss.size
-                    vals[miss] = v2[:m]
-                    idx[miss] = i2[:m]
-                    miss = miss[~c2[:m]]
-                    resolved = 1.0 - miss.size / m
-                    with self._flush_lock:
-                        if self._ivf is state:  # learned on the current snapshot
-                            self._esc_ema = (
-                                resolved
-                                if self._esc_ema is None
-                                else 0.7 * self._esc_ema + 0.3 * resolved
-                            )
-                    if miss.size == 0:
-                        return vals, idx
-        sub = q[torch.from_numpy(miss).to(q.device)]
-        v3, i3 = self._rerun_exact1(self._pad_query_rows(sub), k, count)
-        vals[miss] = v3[: miss.size]
-        idx[miss] = i3[: miss.size]
-        return vals, idx
+        with _CERT_RERUN():
+            vals = np.array(vals)
+            idx = np.array(idx)
+            state, ema = self._ivf, self._esc_ema
+            if (
+                count >= _ESCALATE_MIN_ROWS
+                and 2 * miss.size <= n_queries
+                and self.settings.search_mode == "ivf"
+                and state is not None
+                and (ema is None or ema >= _ESCALATE_MIN_YIELD)
+            ):
+                b0 = min(self.settings.ivf_b, state.n_buckets)
+                b_esc = min(4 * max(b0, 1), state.n_buckets)
+                if b_esc > b0:
+                    sub = self._pad_query_rows(q[torch.from_numpy(miss).to(q.device)])
+                    out = self._rerun_ivf(sub, k, count, b_esc, state)
+                    if out is not None:
+                        v2, i2, c2 = out
+                        m = miss.size
+                        vals[miss] = v2[:m]
+                        idx[miss] = i2[:m]
+                        miss = miss[~c2[:m]]
+                        resolved = 1.0 - miss.size / m
+                        with self._flush_lock:
+                            if self._ivf is state:  # learned on the current snapshot
+                                self._esc_ema = (
+                                    resolved
+                                    if self._esc_ema is None
+                                    else 0.7 * self._esc_ema + 0.3 * resolved
+                                )
+                        if miss.size == 0:
+                            return vals, idx
+            sub = q[torch.from_numpy(miss).to(q.device)]
+            v3, i3 = self._rerun_exact1(self._pad_query_rows(sub), k, count)
+            vals[miss] = v3[: miss.size]
+            idx[miss] = i3[: miss.size]
+            return vals, idx
 
     # -- IVF snapshot lifecycle ---------------------------------------------
 
@@ -1099,33 +1130,38 @@ class VectorStore:
         with self._dispatch_view() as (buf, scales, count):
             if count == 0 or r_n == 0 or b == 0:
                 return [[[] for _ in range(b)] for _ in range(r_n)]
-            if self.settings.query_wire == "int8":
-                q_dev = _int8_wire_upload(
-                    qb, (r_n, _bucket(b), self._dim_pad), self._embedding_size, self._device
-                )
-            else:
-                padded = np.zeros((r_n, _bucket(b), self._dim_pad), dtype=np.float32)
-                padded[:, :b, : self._embedding_size] = qb
-                q_dev = torch.from_numpy(padded).to(self._device)
-            k = min(max_hits, count)
-            state = self._ivf
-            if not self._quantized and self.settings.search_mode == "ivf" and state is not None:
-                # Coalesced serving rides the IVF snapshot too.
-                out = _ivf_many(
-                    state, buf, q_dev, count, self._ivf_count, k=k,
-                    B=min(self.settings.ivf_b, state.n_buckets),
-                )
-                if count > self._ivf_count:
-                    self._maybe_auto_rebuild_locked(count)
-                if not self.settings.ivf_certified:
-                    out = out[:2]
-            else:
-                mode, aux = self._engine_mode(k, buf, scales, count)
-                out = topk.topk_many(
-                    buf, aux, q_dev, count, k=k, mode=mode,
-                    recall_target=self.settings.recall_target,
-                )
-        fetched = _fetch(*out)
+            b_pad = _bucket(b)
+            _count_dispatch(r_n * b, r_n * b_pad)
+            with _UPLOAD():
+                if self.settings.query_wire == "int8":
+                    q_dev = _int8_wire_upload(
+                        qb, (r_n, b_pad, self._dim_pad), self._embedding_size, self._device
+                    )
+                else:
+                    padded = np.zeros((r_n, b_pad, self._dim_pad), dtype=np.float32)
+                    padded[:, :b, : self._embedding_size] = qb
+                    q_dev = torch.from_numpy(padded).to(self._device)
+            with _LAUNCH():
+                k = min(max_hits, count)
+                state = self._ivf
+                if not self._quantized and self.settings.search_mode == "ivf" and state is not None:
+                    # Coalesced serving rides the IVF snapshot too.
+                    out = _ivf_many(
+                        state, buf, q_dev, count, self._ivf_count, k=k,
+                        B=min(self.settings.ivf_b, state.n_buckets),
+                    )
+                    if count > self._ivf_count:
+                        self._maybe_auto_rebuild_locked(count)
+                    if not self.settings.ivf_certified:
+                        out = out[:2]
+                else:
+                    mode, aux = self._engine_mode(k, buf, scales, count)
+                    out = topk.topk_many(
+                        buf, aux, q_dev, count, k=k, mode=mode,
+                        recall_target=self.settings.recall_target,
+                    )
+        with _FETCH():
+            fetched = _fetch(*out)
         vals, idx = fetched[0], fetched[1]
         if len(fetched) > 2:
             # Per-query certificate resolution over the flattened R x b_pad
@@ -1146,9 +1182,10 @@ class VectorStore:
             )
             vals = v.reshape(vals.shape)
             idx = i.reshape(idx.shape)
-        vals = vals[:, :b]
-        idx = idx[:, :b]
-        return [_materialize_rows(vals[i], idx[i], b, min_score) for i in range(r_n)]
+        with _MATERIALIZE():
+            vals = vals[:, :b]
+            idx = idx[:, :b]
+            return [_materialize_rows(vals[i], idx[i], b, min_score) for i in range(r_n)]
 
     def dispatch_lookup(self, queries: np.ndarray, max_hits: int = 10) -> tuple | None:
         """Launch a batched lookup and return device handles without
