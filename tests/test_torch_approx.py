@@ -176,9 +176,10 @@ def test_approx_store_below_crossover_equals_jax_store(dtype):
     for a, b in zip(got, want):
         assert [x.item for x in a] == [x.item for x in b]
         np.testing.assert_allclose([x.score for x in a], [x.score for x in b], atol=TOL[dtype])
+    routed = METRICS.counters.get("topk.approx_route.exact", 0)
     many = ps.fuzzy_lookup_embeddings_many(np.stack([q, q[::-1]]), max_hits=10)
     assert [[x.item for x in r] for r in many[0]] == [[x.item for x in r] for r in got]
-    assert ps._engine_mode(10, ps._buf, None, ps._count) == ("approx", None)
+    assert METRICS.counters.get("topk.approx_route.exact", 0) == routed + 1  # the approx route
 
 
 @pytest.fixture(scope="module")

@@ -273,7 +273,6 @@ def test_int8_store_routes_through_k6(rng, monkeypatch):
     ps.fuzzy_lookup_embeddings_many(_normed(rng, 6, 32).reshape(2, 3, 32), max_hits=5)
     ps.collect_lookup(ps.dispatch_lookup(_normed(rng, 2, 32), max_hits=5))
     assert calls == [1, 1, 1]
-    assert ps._engine_mode(5, ps._buf, ps._scales, ps._count)[0] == "quantized"
 
 
 def test_int8_store_subset_and_predicate_match_jax(rng):

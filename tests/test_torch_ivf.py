@@ -523,10 +523,10 @@ def _force_misses(store, n: int):
     then runs for real, so results stay oracle-exact."""
     orig = store._resolve_cert_misses
 
-    def forcing(vals, idx, cert_h, q, k, count, n_rows, n_queries):
+    def forcing(vals, idx, cert_h, q, k, count, n_real):
         cert_h = np.array(cert_h)
-        cert_h[: min(n, n_rows)] = False
-        return orig(vals, idx, cert_h, q, k, count, n_rows, n_queries)
+        cert_h[: min(n, n_real)] = False
+        return orig(vals, idx, cert_h, q, k, count, n_real)
 
     store._resolve_cert_misses = forcing
 
@@ -701,12 +701,11 @@ def test_escalation_gate_counts_real_queries_not_padding(monkeypatch):
     orig = store._resolve_cert_misses
     seen = []
 
-    def forcing(vals, idx, cert_h, q, k, count, n_rows, n_queries):
+    def forcing(vals, idx, cert_h, q, k, count, n):
         cert_h = np.array(cert_h)
-        real = np.flatnonzero(np.arange(n_rows) % 8 < 5)
-        cert_h[real[:9]] = False
-        seen.append((n_rows, n_queries))
-        return orig(vals, idx, cert_h, q, k, count, n_rows, n_queries)
+        cert_h[:9] = False  # 9 of the 15 real queries miss: more than half
+        seen.append(n)
+        return orig(vals, idx, cert_h, q, k, count, n)
 
     store._resolve_cert_misses = forcing
     esc_calls = []
@@ -714,7 +713,7 @@ def test_escalation_gate_counts_real_queries_not_padding(monkeypatch):
     qs = emb[rng.choice(4000, 15, replace=False)].reshape(3, 5, 64)
     got = store.fuzzy_lookup_embeddings_many(qs, max_hits=5)
     _assert_oracle_sets([h for r in got for h in r], qs.reshape(-1, 64), emb)
-    assert seen == [(24, 15)] and esc_calls == []
+    assert seen == [15] and esc_calls == []
 
 
 def test_warm_serving_runs_the_certificate_miss_routes():

@@ -74,9 +74,9 @@ class LookupBatcher:
     query upload and launches.
     An idle request waits at most ``max_delay_ms`` for company before
     dispatching alone.
-    Batches with identical (b, max_hits, min_score) shapes ride the
-    multi-batch program; ragged ones are padded to the largest b in the
-    group (results are sliced back).
+    A group's batches are stacked as ``[R, b, d]``, ragged ones padded to
+    the largest b in the group (results are sliced back), and the store
+    launches them as one flat batch of ``R*b`` queries.
     """
 
     def __init__(

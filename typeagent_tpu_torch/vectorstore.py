@@ -33,6 +33,12 @@ as in the JAX package: lookups run every shard's one-phase scan (approx
 and IVF per shard where asked) and merge, and the host-side pending and
 scoring semantics stay those of the one-device store.
 
+The coalesced lookup (:meth:`VectorStore.fuzzy_lookup_embeddings_many`)
+takes ``R`` batches of ``b`` queries as ONE flat batch of ``R*b`` rows,
+padded to ``min(_bucket(R*b), R*_bucket(b))`` query slots: a group of 16
+one-query requests launches 16 slots, and no group launches more than
+padding each batch to its own bucket would.
+
 The one-device lookups (:meth:`VectorStore.fuzzy_lookup_embeddings_batch`
 and ``_many``) open the spans ``store.upload``, ``store.launch``,
 ``store.fetch``, ``store.cert_rerun`` (on a miss) and ``store.materialize``
@@ -320,23 +326,6 @@ def _ivf_suffix_merged(
     si = torch.cat([idx, i2], dim=1)
     mv, pos = torch.topk(sv, min(k, sv.shape[1]), dim=1)
     return mv, si.gather(1, pos), cert
-
-
-def _ivf_many(
-    state: ivf.IVFState, buf: torch.Tensor, qs: torch.Tensor, count: int,
-    ivf_count: int, *, k: int, B: int,
-):
-    """R query batches ``[R, b_pad, d_pad]`` through the IVF route in one
-    launch per kernel (the port of ``_ivf_topk_many`` and
-    ``_ivf_suffix_merged_many``): queries are independent, so the batches
-    are stacked and the outputs reshaped back."""
-    r_n, b_pad, d_pad = qs.shape
-    flat = qs.reshape(r_n * b_pad, d_pad)
-    if count <= ivf_count:
-        out = ivf.ivf_topk_program(*state, flat, k, B=B)
-    else:
-        out = _ivf_suffix_merged(state, buf, flat, count, ivf_count, k=k, B=B)
-    return tuple(t.reshape(r_n, b_pad, *t.shape[1:]) for t in out)
 
 
 class VectorStore:
@@ -661,16 +650,19 @@ class VectorStore:
 
     # -- lookups ------------------------------------------------------------
 
-    def _pad_queries(self, queries: np.ndarray) -> torch.Tensor:
-        """Upload queries as f32 ``[b_pad, dim_pad]`` (zero padding); the
-        kernels cast them to the store dtype on the device. An int8-wire
-        store uploads int8 codes and scales instead."""
+    def _pad_queries(self, queries: np.ndarray, n_pad: int | None = None) -> torch.Tensor:
+        """Upload ``b`` queries as f32 ``[n_pad, dim_pad]`` (zero padding;
+        ``n_pad`` defaults to ``_bucket(b)``); the kernels cast them to the
+        store dtype on the device. An int8-wire store uploads int8 codes
+        and scales instead."""
         b = queries.shape[0]
+        if n_pad is None:
+            n_pad = _bucket(b)
         if self.settings.query_wire == "int8":
             return _int8_wire_upload(
-                queries, (_bucket(b), self._dim_pad), self._embedding_size, self._device
+                queries, (n_pad, self._dim_pad), self._embedding_size, self._device
             )
-        out = np.zeros((_bucket(b), self._dim_pad), dtype=np.float32)
+        out = np.zeros((n_pad, self._dim_pad), dtype=np.float32)
         out[:b, : self._embedding_size] = queries
         return torch.from_numpy(out).to(self._device)
 
@@ -736,15 +728,28 @@ class VectorStore:
             max_hits = 10
         if min_score is None:
             min_score = 0.0
-        b = queries.shape[0]
         if self._mesh is not None:
             return self._lookup_sharded(queries, max_hits, min_score, predicate)
+        return self._lookup(queries, _bucket(queries.shape[0]), max_hits, min_score, predicate)
+
+    def _lookup(
+        self,
+        queries: np.ndarray,
+        n_pad: int,
+        max_hits: int,
+        min_score: float,
+        predicate: Callable[[int], bool] | None = None,
+    ) -> list[list[ScoredInt]]:
+        """One-device lookup of ``queries`` ``[b, d]`` in ``n_pad`` query
+        slots: one upload, one kernel route, one fetch, the certificate
+        misses rerun, one materialisation."""
+        b = queries.shape[0]
         with self._dispatch_view() as (buf, scales, count):
             if count == 0 or b == 0:
                 return [[] for _ in range(b)]
-            _count_dispatch(b, _bucket(b))
+            _count_dispatch(b, n_pad)
             with _UPLOAD():
-                q = self._pad_queries(queries)
+                q = self._pad_queries(queries, n_pad)
             with _LAUNCH():
                 if predicate is not None:
                     scores_dev = self._all_scores(q, buf, scales, count)
@@ -762,7 +767,7 @@ class VectorStore:
             else:
                 vals, idx, cert_h = _fetch(vals, idx, cert)
         if cert is not None:
-            vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b, b)
+            vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b)
         with _MATERIALIZE():
             return _materialize_rows(vals, idx, b, min_score)
 
@@ -875,13 +880,11 @@ class VectorStore:
         q: torch.Tensor,
         k: int,
         count: int,
-        n_rows: int,
-        n_queries: int,
+        n: int,
     ) -> tuple[np.ndarray, np.ndarray]:
-        """Per-query certificate-miss resolution over the first ``n_rows``
-        rows of the dispatch, which carry ``n_queries`` real queries (the
-        many route passes its padded population and its real count apart;
-        padding slots arrive certified).
+        """Per-query certificate-miss resolution over the first ``n`` rows
+        of the dispatch, its real queries (the padding slots after them
+        are never rerun).
 
         An IVF store's misses first escalate through one bigger-B IVF pass
         (4x B, capped at every bucket) over just the missed queries, when
@@ -890,8 +893,8 @@ class VectorStore:
         uncertified then rerun the exact one-phase kernel. Rows whose
         certificate held are returned untouched; every replaced row is
         exact."""
-        miss = np.flatnonzero(~np.asarray(cert_h)[:n_rows])
-        METRICS.incr("vectorstore.cert_queries", n_queries)
+        miss = np.flatnonzero(~np.asarray(cert_h)[:n])
+        METRICS.incr("vectorstore.cert_queries", n)
         METRICS.incr("vectorstore.cert_misses", miss.size)
         if miss.size == 0:
             return vals, idx
@@ -901,7 +904,7 @@ class VectorStore:
             state, ema = self._ivf, self._esc_ema
             if (
                 count >= _ESCALATE_MIN_ROWS
-                and 2 * miss.size <= n_queries
+                and 2 * miss.size <= n
                 and self.settings.search_mode == "ivf"
                 and state is not None
                 and (ema is None or ema >= _ESCALATE_MIN_YIELD)
@@ -1060,18 +1063,6 @@ class VectorStore:
             count = self._count
         return mode == "exact" and count >= EXACT2_MIN_ROWS and k <= topk._PALLAS_MAX_K
 
-    def _engine_mode(self, k: int, buf: torch.Tensor, scales, count: int):
-        """Engine mode and auxiliary operand for :func:`ops.topk.topk_many`."""
-        if self._quantized:
-            return "quantized", scales
-        if self.settings.search_mode == "approx":
-            return "approx", None
-        if self._use_exact2(k, count):
-            if self._dtype == torch.float32:
-                return "exact2h", self._shadow(buf, count)
-            return "exact2", None
-        return "exact1", None
-
     async def fuzzy_lookup_embeddings_batch_async(
         self,
         queries: np.ndarray,
@@ -1110,8 +1101,11 @@ class VectorStore:
         max_hits: int | None = None,
         min_score: float | None = None,
     ) -> list[list[list[ScoredInt]]]:
-        """R query batches ``[R, b, embedding_size]`` through one launch
-        per kernel (the coalesced serving path)."""
+        """R query batches ``[R, b, embedding_size]`` in one dispatch (the
+        coalesced serving path). Queries are independent in every route,
+        so the batches go to the device as one flat batch of ``R*b`` rows
+        in ``min(_bucket(R*b), R*_bucket(b))`` query slots, and the answers
+        are split back into R lists of b, in order."""
         if max_hits is None:
             max_hits = 10
         if min_score is None:
@@ -1127,65 +1121,11 @@ class VectorStore:
                 return [[[] for _ in range(b)] for _ in range(r_n)]
             handles = [self.dispatch_lookup(qb[i], max_hits=max_hits) for i in range(r_n)]
             return [self.collect_lookup(h, min_score=min_score) for h in handles]
-        with self._dispatch_view() as (buf, scales, count):
-            if count == 0 or r_n == 0 or b == 0:
-                return [[[] for _ in range(b)] for _ in range(r_n)]
-            b_pad = _bucket(b)
-            _count_dispatch(r_n * b, r_n * b_pad)
-            with _UPLOAD():
-                if self.settings.query_wire == "int8":
-                    q_dev = _int8_wire_upload(
-                        qb, (r_n, b_pad, self._dim_pad), self._embedding_size, self._device
-                    )
-                else:
-                    padded = np.zeros((r_n, b_pad, self._dim_pad), dtype=np.float32)
-                    padded[:, :b, : self._embedding_size] = qb
-                    q_dev = torch.from_numpy(padded).to(self._device)
-            with _LAUNCH():
-                k = min(max_hits, count)
-                state = self._ivf
-                if not self._quantized and self.settings.search_mode == "ivf" and state is not None:
-                    # Coalesced serving rides the IVF snapshot too.
-                    out = _ivf_many(
-                        state, buf, q_dev, count, self._ivf_count, k=k,
-                        B=min(self.settings.ivf_b, state.n_buckets),
-                    )
-                    if count > self._ivf_count:
-                        self._maybe_auto_rebuild_locked(count)
-                    if not self.settings.ivf_certified:
-                        out = out[:2]
-                else:
-                    mode, aux = self._engine_mode(k, buf, scales, count)
-                    out = topk.topk_many(
-                        buf, aux, q_dev, count, k=k, mode=mode,
-                        recall_target=self.settings.recall_target,
-                    )
-        with _FETCH():
-            fetched = _fetch(*out)
-        vals, idx = fetched[0], fetched[1]
-        if len(fetched) > 2:
-            # Per-query certificate resolution over the flattened R x b_pad
-            # population; padding slots carry no query and are pre-certified,
-            # and only the R x b real queries count.
-            cert = np.array(fetched[2])
-            cert[:, b:] = True
-            flat = cert.size
-            v, i = self._resolve_cert_misses(
-                vals.reshape(flat, k),
-                idx.reshape(flat, k),
-                cert.reshape(flat),
-                q_dev.reshape(flat, q_dev.shape[-1]),
-                k,
-                count,
-                flat,
-                r_n * b,
-            )
-            vals = v.reshape(vals.shape)
-            idx = i.reshape(idx.shape)
-        with _MATERIALIZE():
-            vals = vals[:, :b]
-            idx = idx[:, :b]
-            return [_materialize_rows(vals[i], idx[i], b, min_score) for i in range(r_n)]
+        n = r_n * b
+        rows = self._lookup(
+            qb.reshape(n, qb.shape[2]), min(_bucket(n), r_n * _bucket(b)), max_hits, min_score
+        )
+        return [rows[i * b : (i + 1) * b] for i in range(r_n)]
 
     def dispatch_lookup(self, queries: np.ndarray, max_hits: int = 10) -> tuple | None:
         """Launch a batched lookup and return device handles without
@@ -1221,7 +1161,7 @@ class VectorStore:
         if len(handle) == 7:  # exact2 dispatch: certificate checked here
             vals, idx, b, cert, q, k, count = handle
             vals, idx, cert_h = _fetch(vals, idx, cert)
-            vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b, b)
+            vals, idx = self._resolve_cert_misses(vals, idx, cert_h, q, k, count, b)
         else:
             vals, idx, b = handle
             vals, idx = _fetch(vals, idx)
