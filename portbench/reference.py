@@ -102,9 +102,15 @@ class Reference:
             self._add_chunk(start + lo, part, None if conv is None else conv[lo : lo + CHUNK])
 
     def _add_chunk(self, start: int, rows: torch.Tensor, conv: torch.Tensor | None) -> None:
-        n = rows.shape[0]
         score = to_score(self.q @ rows.T)  # [m, n]
-        allowed = self._allowed(conv)
+        control = to_score(self.q_tf32 @ round_tf32(rows).T) if self.control else None
+        self._merge(start, score, control, self._allowed(conv))
+
+    def _merge(self, start: int, score: torch.Tensor, control: torch.Tensor | None,
+               allowed: torch.Tensor | None) -> None:
+        """Fold the scores of rows ``[start, start + n)`` (``[m, n]``; the
+        control's too, where it is on) into the running answers."""
+        n = score.shape[1]
         masked = score if allowed is None else score.masked_fill(~allowed, -float("inf"))
         kk = min(self.k, n)
         both = torch.cat([self.best, masked.topk(kk, dim=1).values], dim=1)
@@ -118,11 +124,10 @@ class Reference:
             self.in_scope |= hit
         else:
             self.in_scope |= hit & allowed.gather(1, safe)
-        if self.control:
-            c = to_score(self.q_tf32 @ round_tf32(rows).T)
+        if control is not None:
             if allowed is not None:
-                c = c.masked_fill(~allowed, -float("inf"))
-            v, pos = c.topk(kk, dim=1)
+                control = control.masked_fill(~allowed, -float("inf"))
+            v, pos = control.topk(kk, dim=1)
             vals = torch.cat([self.c_vals, v], dim=1)
             refs = torch.cat([self.c_ref, score.gather(1, pos)], dim=1)
             idx = torch.cat([self.c_idx, pos + start], dim=1)

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 _HERE = os.path.dirname(os.path.abspath(__file__))
 F32 = 4
 BF16 = 2
+INT8 = 1
 ROW = 128  # rows per bucket and per tile
 
 
@@ -60,5 +61,18 @@ def bucket_maxima_bf16(rows: int, dim: int, b: int = 1) -> Work:
     return Work(
         ops=2.0 * b * rows * dim,
         bytes=rows * dim * BF16 + b * dim * F32 + b * buckets * F32,
+        rate="bf16_flops",
+    )
+
+
+def scan_int8(b: int, rows: int, dim: int, k: int = 10, mask: bool = False) -> Work:
+    """K6 (``rows`` = the live count) and K7 (``rows`` = the rows in scope,
+    ``mask`` True) over an int8 store: every query against every row on
+    the bf16 tensor cores, counted for the real batch and not the padded
+    query block; the codes, the f32 scales, the bf16 queries, a row mask's
+    entries for the rows in scope, and the ``[b, k]`` winners."""
+    return Work(
+        ops=2.0 * b * rows * dim,
+        bytes=rows * dim * INT8 + rows * F32 + b * dim * BF16 + (rows * 4 if mask else 0) + b * k * 8,
         rate="bf16_flops",
     )

@@ -6,7 +6,8 @@ It reads the cell from ``BENCHMARK.json``, its configuration from
 ``configs/`` and its traffic mix from ``traffic/``; makes the data on the
 card from the seed and feeds the program (``system.py``); warms up on the
 same traffic; measures for ``--seconds``; holds a sample of the window's
-answers to the plain reference (``reference.py``, ``check.py``); and
+answers to the plain reference (``check.py``; the module the configuration
+names under ``"reference"``, ``reference.py`` unless it names another); and
 prints one JSON line last on standard output. With ``--trace 1`` a
 stretch of the window runs under ``torch.profiler`` and the line carries
 the per-layer metrics (readers in ``metrics/``), else the end-to-end
@@ -38,11 +39,13 @@ if ROOT not in sys.path:
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from portbench import check, generate, reference, trace, traffic  # noqa: E402
+from portbench import check, generate, trace, traffic  # noqa: E402
 
 T_IMPORTED_NS = time.perf_counter_ns()  # Python, numpy, torch and the harness loaded
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "typeagent_tpu")
+# The plain reference of a configuration that names none (``reference.py``).
+REFERENCE = "reference"
 # The traced stretch: from this share of the window, for this share of it
 # and at most STRETCH_MAX_S seconds.
 STRETCH_AT, STRETCH_SHARE, STRETCH_MAX_S = 0.3, 0.4, 3.0
@@ -74,12 +77,30 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     entry = next(c for c in bench["configs"] if c["name"] == work["config"])
     cfg = load_json(os.path.join(root, entry["file"]))
+    reference_module(cfg)  # a reference that is missing fails here, before set-up
     mix = load_json(os.path.join(root, "portbench", "traffic", f"{work['traffic']}.json"))
 
     def mine(metrics: list[dict]) -> list[dict]:
         return [m for m in metrics if name in m.get("workloads", [name])]
 
     return Cell(name, cfg, mix, work["chips"], mine(bench["end_to_end"]), mine(bench["per_layer"]))
+
+
+def reference_module(cfg: dict):
+    """The plain reference a configuration names under ``"reference"``: a
+    module of ``portbench/`` with a ``Reference``, ``Scope`` and
+    ``resolve`` as ``reference.py`` has them; ``reference.py`` where the
+    configuration names none."""
+    name = cfg.get("reference", REFERENCE)
+    found = isinstance(name, str) and name.isidentifier() and (
+        importlib.util.find_spec(f"portbench.{name}") is not None)
+    if not found:
+        raise SystemExit(f"the configuration's reference {name!r} is no module portbench/{name}.py")
+    mod = importlib.import_module(f"portbench.{name}")
+    missing = [a for a in ("Reference", "Scope", "resolve") if not hasattr(mod, a)]
+    if missing:
+        raise SystemExit(f"the reference module portbench/{name}.py lacks {missing}")
+    return mod
 
 
 def require_devices(chips: int) -> torch.device:
@@ -186,6 +207,7 @@ def hold_to_reference(sample, system_hits, cfg: dict, mix: dict, seed: int, devi
                       layout=None, control: bool = False):
     """The reference over the sampled requests; returns ``(numbers,
     control_numbers or None, queries checked)``."""
+    reference = reference_module(cfg)
     queries = np.concatenate([req.queries for req, _ in sample])
     answers = [system_hits(result) for _, result in sample]
     k = answers[0]["items"].shape[1]

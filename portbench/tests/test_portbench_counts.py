@@ -58,3 +58,34 @@ def test_a_scan_share_takes_the_least_bound_of_its_kind_and_needs_no_pairing():
     assert scan_roofline(ctx, "K4") == pytest.approx(50.0, rel=1e-6)
     assert scan_roofline(ctx, "K1") is None  # a global request, but no K1 launch
     assert scan_roofline(NS(trace=None), "K4") is None
+
+
+@pytest.mark.parametrize("mask", [False, True])
+def test_k6_and_k7_count_the_codes_scales_bf16_queries_and_the_real_batch(mask):
+    peak = counts.peaks()
+    w = counts.scan_int8(1, 1_000_000, 768, mask=mask)
+    assert w.ops == 2 * 1 * 1_000_000 * 768 and w.rate == "bf16_flops"
+    assert w.bytes == 768_000_000 + 4_000_000 + 768 * 2 + (4_000_000 if mask else 0) + 10 * 8
+    assert w.bound_side(peak) == "bytes"
+    assert w.bound_s(peak) == pytest.approx(w.bytes / 3.35e12, rel=1e-12)
+    # The padded query block does not count: 64 queries' work is 64 times one's.
+    assert counts.scan_int8(64, 1_000_000, 768, mask=mask).ops == 64 * w.ops
+
+
+@pytest.mark.parametrize("label,name", [
+    ("K6", "void tat::topk_mma_kernel<false, true>(signed char const*, float const*, "
+           "__nv_bfloat16 const*, long, int, int, long, int, long, int, int const*, int const*, "
+           "int const*, float*, int*)"),
+    ("K6", "void tat::topk_mma_kernel<false, false>(signed char const*, float const*)"),
+    ("K7", "void tat::topk_mma_kernel<true, true>(signed char const*, float const*)"),
+    ("K7", "void tat::topk_mma_kernel<true, false>(signed char const*, float const*)"),
+])
+def test_k6_and_k7_are_named_apart(label, name):
+    from portbench import trace
+
+    table = trace.kernel_table()
+    assert trace.label_of(name, table) == label
+    other = {"K6": "K7", "K7": "K6"}[label]
+    pattern = dict(table)[other]
+    assert not pattern.search(name)
+    assert "K6/K7" not in dict(table)
