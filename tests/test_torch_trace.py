@@ -18,6 +18,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from typeagent_tpu_torch.models.adapters import create_test_embedding_model
+from typeagent_tpu_torch.ops import topk
+from typeagent_tpu_torch.parallel import sharded
 from typeagent_tpu_torch.parallel.corpus import CorpusVectorStore
 from typeagent_tpu_torch.serve import LookupBatcher
 from typeagent_tpu_torch.utils import trace
@@ -207,9 +209,9 @@ def test_a_certificate_miss_is_a_span(store):
     assert [s.name for s in _new_spans(before)] == ["store.cert_rerun"]
 
 
-def _corpus() -> CorpusVectorStore:
+def _corpus(dtype: str = "float32") -> CorpusVectorStore:
     rng = np.random.default_rng(7)
-    corpus = CorpusVectorStore(D, device="cpu")
+    corpus = CorpusVectorStore(D, device="cpu", dtype=dtype)
     for name in ("a", "b", "c", "d"):
         corpus.append(name, _unit(rng, 50))
     return corpus
@@ -244,6 +246,78 @@ def test_corpus_spans_nest_under_the_query():
         "corpus.normalize", "corpus.scope", "corpus.launch", "corpus.fetch", "corpus.resolve",
     ]
     assert all(s.parent_id == root.span_id for s in spans[:-1])
+
+
+def test_an_int8_scoped_search_counts_its_row_mask_under_the_launch():
+    corpus = _corpus("int8")
+    q = _unit(np.random.default_rng(9), 1)
+    before, spans_before = _counters(), trace.finished_spans()
+    with trace.recording():
+        hits = corpus.search(q, 5, conversations=["b", "d"])
+    assert {h.conversation for h in hits[0]} <= {"b", "d"}
+    # One mask over the shard's whole capacity, however small the scope.
+    assert _delta(before, "corpus.rowmask_rows") == corpus._store.local_n
+    assert _delta(before, "corpus.rowmask_s") > 0.0
+    spans = _new_spans(spans_before)
+    launch = next(s for s in spans if s.name == "corpus.launch")
+    (mask,) = [s for s in spans if s.name == "corpus.rowmask"]
+    assert mask.parent_id == launch.span_id
+    assert launch.start_ns <= mask.start_ns <= mask.end_ns <= launch.end_ns
+
+
+@pytest.mark.parametrize("dtype,conversations", [
+    ("int8", None), ("float32", None), ("float32", ["a", "c"]), ("bfloat16", ["b", "c", "d"]),
+])
+def test_no_row_mask_is_built_off_the_int8_scoped_route(dtype, conversations):
+    corpus = _corpus(dtype)
+    before = _counters()
+    corpus.search(_unit(np.random.default_rng(9), 2), 5, conversations=conversations)
+    assert _delta(before, "corpus.searches") == 1
+    assert _delta(before, "corpus.rowmask_rows") == 0.0
+    assert _delta(before, "corpus.rowmask_s") == 0.0
+
+
+@pytest.mark.parametrize("on_device", [False, True])
+def test_an_int8_append_counts_the_rows_it_quantizes(on_device):
+    corpus = CorpusVectorStore(D, device="cpu", dtype="int8")
+    rows = _unit(np.random.default_rng(3), 70)
+    before, spans_before = _counters(), trace.finished_spans()
+    with trace.recording():
+        if on_device:
+            corpus.append_device("a", torch.from_numpy(rows))
+        else:
+            corpus.append("a", rows)
+            corpus.search(rows[:1], 1)  # the pending rows flush here
+    assert _delta(before, "corpus.quantized_rows") == 70
+    assert _delta(before, "corpus.quantize_s") > 0.0
+    assert [s.name for s in _new_spans(spans_before)].count("corpus.quantize") == 1
+
+
+def test_an_f32_append_quantizes_nothing():
+    before = _counters()
+    _corpus("float32").search(_unit(np.random.default_rng(9), 1), 5)
+    assert _delta(before, "corpus.quantized_rows") == 0.0
+    assert _delta(before, "corpus.quantize_s") == 0.0
+
+
+@pytest.mark.parametrize("offset,table", [
+    (0, [[100, 300]]),
+    (0, [[0, 64], [256, 700], [900, 1024], [0, 0]]),
+    (512, [[600, 800], [1000, 1400]]),  # one interval across the shard's first row
+    (1024, [[0, 900], [2100, 2200]]),  # one interval before the shard, one past it
+])
+def test_the_int8_interval_route_answers_as_topk_program_intervals_quantized(offset, table):
+    rng = np.random.default_rng(13)
+    local_n, count, k = 1024, 900 + offset, 10
+    rows = torch.from_numpy(_unit(rng, local_n))
+    emb, scales = topk.quantize_rows_device(rows)
+    q = torch.from_numpy(_unit(rng, 8)).to(torch.bfloat16).float()
+    intervals = torch.tensor(table, dtype=torch.int32)
+    got = sharded._shard_interval_topk(emb, scales, offset, intervals, q, count, k)
+    local_iv = (intervals - offset).clamp(0, local_n)
+    want = sharded._to_global(*topk.topk_program_intervals_quantized(
+        emb, scales, q, sharded._local_count(count, offset, local_n), local_iv, k), offset)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_the_ring_stays_bounded():

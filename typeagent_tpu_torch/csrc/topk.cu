@@ -65,6 +65,16 @@
 
 #include "mma_tile.cuh"
 
+// The build compiles this file in four parts at once (ops/_build.py
+// KERNEL_UNITS: -DTOPK_PART=0 to 3), each defining the entry points of its
+// part and so instantiating only their kernels: 0 K1 and the merge, 1 K4,
+// 2 K5, 3 K6 and K7. Without TOPK_PART the file defines every entry point.
+#ifdef TOPK_PART
+#define TOPK_IN_PART(n) (TOPK_PART == (n))
+#else
+#define TOPK_IN_PART(n) 1
+#endif
+
 namespace tat {
 
 enum RowFilter { kNoFilter = 0, kIntervals = 1, kMask = 2 };
@@ -172,6 +182,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+#if TOPK_IN_PART(0)
 __global__ void __launch_bounds__(THREADS)
     topk_merge_kernel(const float* __restrict__ cand_vals,
                       const int* __restrict__ cand_idx, int b, int splits,
@@ -192,6 +203,7 @@ __global__ void __launch_bounds__(THREADS)
     out_idx[(int64_t)gq * k + lane] = top.i;
   }
 }
+#endif  // TOPK_IN_PART(0)
 
 // ---------------------------------------------------------------------------
 // K6, K7: int8 rows on the tensor-core loop, with a top-k epilogue
@@ -405,6 +417,7 @@ int launch_float_scan(const void* emb, int dtype, const float* q,
 // topk_query_block; the store and queries are 16-byte aligned with d_pad %
 // 32 == 0. Every entry point returns cudaGetLastError() after its launch.
 
+#if TOPK_IN_PART(0)
 // K1. dtype: 0 = float32 store, 1 = bfloat16 store.
 extern "C" int tat_topk_scan(const void* emb, int dtype, const float* q,
                              int64_t n_rows, int d_pad, int b, int64_t count,
@@ -415,6 +428,7 @@ extern "C" int tat_topk_scan(const void* emb, int dtype, const float* q,
       emb, dtype, q, n_rows, d_pad, b, count, k, rows_per_split, splits,
       query_block, tat::ScanExtras{}, cand_vals, cand_idx, stream);
 }
+#endif
 
 // K4 and K5 read only listed tiles. tiles: the ascending indices of the
 // 128-row tiles that hold an in-scope row below the count, and n_tiles: a
@@ -422,6 +436,7 @@ extern "C" int tat_topk_scan(const void* emb, int dtype, const float* q,
 // scope_tiles for K5). splits: CTAs per query block (scan_geometry over
 // the count; rows_per_split is unused).
 
+#if TOPK_IN_PART(1)
 // K4: rows inside any of n_intervals (<= 8) [start, stop) spans.
 extern "C" int tat_topk_scan_iv(const void* emb, int dtype, const float* q,
                                 int64_t n_rows, int d_pad, int b,
@@ -441,7 +456,9 @@ extern "C" int tat_topk_scan_iv(const void* emb, int dtype, const float* q,
       emb, dtype, q, n_rows, d_pad, b, count, k, rows_per_split, splits,
       query_block, x, cand_vals, cand_idx, stream);
 }
+#endif
 
+#if TOPK_IN_PART(2)
 // K5: rows whose i32 mask entry is > 0 (the JAX kernel's m_ref > 0).
 extern "C" int tat_topk_scan_mask(const void* emb, int dtype, const float* q,
                                   int64_t n_rows, int d_pad, int b,
@@ -460,7 +477,9 @@ extern "C" int tat_topk_scan_mask(const void* emb, int dtype, const float* q,
       emb, dtype, q, n_rows, d_pad, b, count, k, rows_per_split, splits,
       query_block, x, cand_vals, cand_idx, stream);
 }
+#endif
 
+#if TOPK_IN_PART(3)
 // K6: int8 rows ([n_rows, d_pad] codes, d_pad % 64 == 0) with per-row
 // scales ([n_rows] f32); q: [b, d_pad] bf16 (the f32 queries rounded once
 // by the wrapper); query_block 64.
@@ -491,7 +510,9 @@ extern "C" int tat_topk_scan_mq(const int8_t* emb, const float* scales,
                                     rows_per_split, splits, query_block, mask, tiles,
                                     n_tiles, cand_vals, cand_idx, stream);
 }
+#endif
 
+#if TOPK_IN_PART(0)
 extern "C" int tat_topk_merge(const float* cand_vals, const int* cand_idx,
                               int b, int splits, int k, float* out_vals,
                               int* out_idx, void* stream) {
@@ -501,3 +522,4 @@ extern "C" int tat_topk_merge(const float* cand_vals, const int* cand_idx,
       cand_vals, cand_idx, b, splits, k, out_vals, out_idx);
   return (int)cudaGetLastError();
 }
+#endif

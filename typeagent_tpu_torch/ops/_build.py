@@ -4,9 +4,13 @@ The CUDA kernels (``csrc/*.cu``) compile with ``nvcc`` for ``sm_90a`` into
 one shared library with a plain C interface, loaded through ``ctypes``.
 Nothing is built at import time: the first launch builds, under a file
 lock so that concurrent processes (test workers, a server's replicas)
-build once; each source compiles in its own ``nvcc`` process, all started
-together, and the objects link into the library. Outputs go to ``typeagent_tpu_torch/_build/``, named by a hash
-of their sources and flags, so an edited source rebuilds.
+build once; each compile unit (a source, or one part of ``topk.cu``, the
+longest) compiles in its own ``nvcc`` process, all started together, and
+the objects link into the library. A store made on a CUDA device starts
+the build in the background (:func:`start_building`), so that it runs
+while the store is filled and not in front of the first search. Outputs go
+to ``typeagent_tpu_torch/_build/``, named by a hash of their sources and
+flags, so an edited source rebuilds.
 """
 
 from __future__ import annotations
@@ -24,6 +28,12 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 KERNEL_SOURCES = ("topk.cu", "bucket_maxima.cu", "rescore.cu", "tile_list.cu")
+# Compile units: (source, its own flags). topk.cu compiles in four parts
+# (its TOPK_PART), each no longer than bucket_maxima.cu alone.
+KERNEL_UNITS = tuple(
+    [("topk.cu", (f"-DTOPK_PART={part}",)) for part in range(4)]
+    + [(source, ()) for source in KERNEL_SOURCES[1:]]
+)
 KERNEL_HEADERS = ("tile.cuh", "mma_tile.cuh", "wgmma_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -32,6 +42,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _kernels: ctypes.CDLL | None = None
+_builder: threading.Thread | None = None
+_builder_lock = threading.Lock()  # not _lock, which the build holds throughout
 
 
 def find_nvcc() -> str:
@@ -74,22 +86,28 @@ def _run_all(commands: list[list[str]], what: str) -> None:
 
 
 def build_shared(
-    name: str, sources: list[str], headers: list[str], command: list[str]
+    name: str, sources: list[str | tuple[str, tuple[str, ...]]], headers: list[str],
+    command: list[str],
 ) -> str:
     """Build ``command + ['-o', out] + sources`` once per content hash.
 
-    Several sources compile to objects in parallel (one compiler process
-    each, ``command`` without ``-shared`` plus ``-c``), then link. Returns
-    the library path. The build runs under an exclusive file lock and
-    lands through an atomic rename, so a reader never sees a half-written
-    library. Raises ``RuntimeError`` with the compiler's output on
-    failure.
+    A source is a path, or ``(path, flags)`` for a compile unit with flags
+    of its own (one path may appear in several units). Several units
+    compile to objects in parallel (one compiler process each, ``command``
+    without ``-shared``, plus the unit's flags and ``-c``), then link.
+    Returns the library path. The build runs under an exclusive file lock
+    and lands through an atomic rename, so a reader never sees a
+    half-written library. Raises ``RuntimeError`` with the compiler's
+    output on failure.
     """
+    units = [(s, ()) if isinstance(s, str) else (s[0], tuple(s[1])) for s in sources]
     digest = hashlib.sha256()
-    for path in list(sources) + list(headers):
+    for path in [u[0] for u in units] + list(headers):
         with open(path, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(command).encode())
+    for _path, flags in units:
+        digest.update(" ".join(flags).encode())
     out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
@@ -100,15 +118,19 @@ def build_shared(
             if os.path.exists(out):
                 return out
             tmp = f"{out}.{os.getpid()}.tmp"
-            objects = [f"{tmp}.{i}.o" for i in range(len(sources))] if len(sources) > 1 else []
+            objects = [f"{tmp}.{i}.o" for i in range(len(units))] if len(units) > 1 else []
             try:
                 if objects:
-                    compile_only = [c for c in command if c != "-shared"] + ["-c"]
+                    compile_only = [c for c in command if c != "-shared"]
                     _run_all(
-                        [compile_only + ["-o", obj, src] for obj, src in zip(objects, sources)],
+                        [compile_only + [*flags, "-c", "-o", obj, src]
+                         for obj, (src, flags) in zip(objects, units)],
                         name,
                     )
-                _run_all([list(command) + ["-o", tmp] + (objects or list(sources))], name)
+                    _run_all([list(command) + ["-o", tmp] + objects], name)
+                else:
+                    src, flags = units[0]
+                    _run_all([list(command) + [*flags, "-o", tmp, src]], name)
             finally:
                 for obj in objects:
                     if os.path.exists(obj):
@@ -161,12 +183,32 @@ def kernels() -> ctypes.CDLL:
         if _kernels is None:
             path = build_shared(
                 "tat_kernels",
-                [os.path.join(CSRC_DIR, s) for s in KERNEL_SOURCES],
+                [(os.path.join(CSRC_DIR, s), flags) for s, flags in KERNEL_UNITS],
                 [os.path.join(CSRC_DIR, h) for h in KERNEL_HEADERS],
                 [find_nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}"],
             )
             _kernels = _declare(ctypes.CDLL(path))
     return _kernels
+
+
+def start_building() -> None:
+    """Start :func:`kernels` on a daemon thread, once per process, and
+    return at once. The compilers run while the caller goes on (a store
+    being filled); the first launch then waits in :func:`kernels` only for
+    what is left. A failed build is left for that call to raise again."""
+    global _builder
+    with _builder_lock:
+        if _kernels is not None or _builder is not None:
+            return
+        _builder = threading.Thread(target=_build_quietly, name="tat-kernels-build", daemon=True)
+        _builder.start()
+
+
+def _build_quietly() -> None:
+    try:
+        kernels()
+    except Exception:  # noqa: BLE001 - the first launch builds again and raises
+        pass
 
 
 def check(rc: int, what: str) -> None:

@@ -19,7 +19,11 @@ the interval table), the matrix's ``corpus.launch`` and ``corpus.fetch``
 (``sharded.py``) and ``corpus.resolve`` (the ``starts`` list and each hit's
 segment). ``METRICS``: ``corpus.searches``; seconds in ``corpus.fetch_s``,
 ``corpus.scope_s``, ``corpus.resolve_s`` and ``corpus.host_s`` (normalize,
-scope, launch and resolve: the query less its fetch).
+scope, launch and resolve: the query less its fetch). An int8 corpus adds
+``corpus.rowmask`` under ``corpus.launch`` on each scoped search (the row
+mask over the whole matrix; ``corpus.rowmask_s``, ``corpus.rowmask_rows``)
+and ``corpus.quantize`` on each append (``corpus.quantize_s``,
+``corpus.quantized_rows``), both in ``sharded.py``.
 """
 
 from __future__ import annotations

@@ -40,6 +40,14 @@ Routes, as in the JAX package:
 the corpus's searches, open the spans ``corpus.launch`` (the query and
 table uploads, every shard's program and the merge; its seconds in
 ``METRICS`` ``corpus.host_s``) and ``corpus.fetch`` (``corpus.fetch_s``).
+Two spans belong to an int8 store alone: ``corpus.rowmask``, under
+``corpus.launch``, the row mask an interval-scoped search builds over each
+shard's whole capacity (``corpus.rowmask_s``, not added to
+``corpus.host_s``, which its launch already holds; ``corpus.rowmask_rows``
+grows by each mask's length), and ``corpus.quantize``, the quantized ingest
+of every append (``corpus.quantize_s``; ``corpus.quantized_rows``). Both
+time the host's side, as ``corpus.launch`` does, and add no wait for the
+device.
 """
 
 from __future__ import annotations
@@ -53,9 +61,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..ops import append as append_ops
 from ..ops import topk
 from ..utils import trace
+from ..utils.metrics import METRICS
 from ..vectorstore import _fetch, _native_results
 from .mesh import AXIS_DP, AXIS_SHARD, Mesh, single_device_mesh
 
@@ -69,6 +79,8 @@ _SHARD_ROW_QUANTUM = 128
 
 _LAUNCH = trace.Site("corpus.launch", "corpus.host_s")
 _FETCH = trace.Site("corpus.fetch", "corpus.fetch_s")
+_ROWMASK = trace.Site("corpus.rowmask", "corpus.rowmask_s")
+_QUANTIZE = trace.Site("corpus.quantize", "corpus.quantize_s")
 
 
 def _bucket_size(n: int, buckets) -> int:
@@ -127,7 +139,11 @@ def _shard_interval_topk(emb, scales, offset: int, intervals, q, count: int, k: 
     local_count = _local_count(count, offset, local_n)
     local_iv = (intervals - offset).clamp(0, local_n)
     if scales is not None:
-        out = topk.topk_program_intervals_quantized(emb, scales, q, local_count, local_iv, k)
+        # topk.topk_program_intervals_quantized's two steps, the mask's in a span.
+        with _ROWMASK():
+            rowmask = topk.intervals_to_rowmask(local_n, local_iv)
+        METRICS.incr("corpus.rowmask_rows", rowmask.shape[1])
+        out = topk.topk_program_masked_quantized(emb, scales, q, local_count, rowmask, k)
     else:
         out = topk.topk_program_intervals(emb, q, local_count, local_iv, k)
     return _to_global(*out, offset)
@@ -199,6 +215,8 @@ class ShardedVectorStore:
         self.n_shard = mesh.shape[AXIS_SHARD]
         # Merged answers land here (dp rank 0's first device).
         self.device = mesh.devices[0, 0]
+        if self.device.type == "cuda":
+            _build.start_building()  # nvcc runs while the store is filled
         self.search_mode = search_mode
         self.recall_target = recall_target
         self.ivf_b = ivf_b  # buckets rescored per shard per query
@@ -362,7 +380,9 @@ class ShardedVectorStore:
         self._grow(self.count + n)
         row_scales = None
         if self._quantized:
-            rows, row_scales = topk.quantize_rows_device(rows)
+            with _QUANTIZE():
+                rows, row_scales = topk.quantize_rows_device(rows)
+            METRICS.incr("corpus.quantized_rows", n)
         self._write(rows, row_scales, self.count)
         self.count += n
 
@@ -415,7 +435,9 @@ class ShardedVectorStore:
         row_scales = None
         if self._quantized:
             # int8 rows quantize on the host from f32, as in the JAX store.
-            rows, row_scales = topk.quantize_rows(rows)
+            with _QUANTIZE():
+                rows, row_scales = topk.quantize_rows(rows)
+            METRICS.incr("corpus.quantized_rows", n)
         # f32 rows go up as they are; a bf16 shard casts them on the device.
         self._write(rows, row_scales, self.count)
         self.count += n

@@ -339,6 +339,8 @@ class VectorStore:
         self._device = settings.device
         self._dtype = _DTYPES[settings.dtype]
         self._quantized = self._dtype == torch.int8
+        if self._device.type == "cuda":
+            _build.start_building()  # nvcc runs while the store is filled
         # bf16 selection shadow: one (key, shadow) tuple, swapped whole so a
         # serving thread never pairs a key with another buffer's shadow.
         self._shadow_cache: tuple | None = None
