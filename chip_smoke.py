@@ -269,6 +269,18 @@ Phases, one JSON line each:
      subprocesses on the card, each exiting 0, their last lines.
      ``python3 chip_smoke.py --tools`` builds the kernels and runs this
      phase alone.
+ 19. The narrow int8 scans (``csrc/topk_narrow.cu``: K6 and K7 up to 16
+     queries) at the int8 cells' width, run after phase 7: phase 7's layout
+     at 30,000,000 x 768 int8 rows made on the card; K6 at b = 8 (a probe
+     row's query and 7 zero queries, as the corpus pads one caller's
+     search; the probe must find itself) and K7 over one and two
+     conversations at b = 8, each against its plain version, its launch
+     counters (``topk_q_narrow``, ``topk_mq_narrow``), its time beside the
+     plain version's in turns, and its bound; then K6 at b = 1, 8, 9, 12 and
+     16 on the narrow kernel and on the 64-query loop in turns (the
+     crossover that sets ``ops/topk.py`` ``_NARROW_MAX_B``). ``python3
+     chip_smoke.py --narrow-int8`` builds the kernels and runs this phase
+     alone.
 
 Each phase's line carries ``t_s``, the seconds since the script started.
 
@@ -325,6 +337,14 @@ CORPUS_F32_SEG_ROWS = 416_000  # 24 x 416,000 = 9,984,000 rows
 CORPUS_INT8_SEG_ROWS = 1_250_000  # 24 x 1,250,000 = 30,000,000 rows
 CORPUS_CHUNK = 500_000  # rows made on the card per append_device
 CORPUS_B = 64
+# Phase 19: the narrow int8 scans at the int8 cells' width, and the batches
+# of its crossover sweep.
+D_NARROW = 768
+NARROW_BATCHES = (1, 8, 9, 12, 16)
+# ... and the widths at which its plan has fewer consumer warps or slabs,
+# each over ~6 GB of random codes made on the card, at b = 8 and 16.
+NARROW_WIDTHS = (1024, 1536, 2048, 3072, 4096)
+NARROW_WIDE_BYTES = 6_000_000_000
 KERNELS = ("topk", "bucket_maxima", "bucket_argmax", "rescore", "topk_iv", "topk_mask", "topk_q",
            "topk_mq", "bucket_maxima_q", "bucket_maxima_q4", "interval_tiles", "scope_tiles")
 # Further entries of the kernels line: a kernel at another of its paths'
@@ -2034,7 +2054,7 @@ def clustered_rows(gen, dev, n: int, topics: int, n_queries: int):
     return out, q.cpu().numpy()
 
 
-def build_corpus(corpus, gen, dev, seg_rows: int, chunk: int) -> None:
+def build_corpus(corpus, gen, dev, seg_rows: int, chunk: int, d: int = D_MAIN) -> None:
     """The fragmented corpus layout (24 interleaved segments over three
     conversations) from ``gen``'s standard normal rows, made on ``dev``."""
     import torch
@@ -2043,7 +2063,168 @@ def build_corpus(corpus, gen, dev, seg_rows: int, chunk: int) -> None:
     for name in CORPUS_LAYOUT:
         for done in range(0, seg_rows, chunk):
             step = min(chunk, seg_rows - done)
-            corpus.append_device(name, torch.randn((step, D_MAIN), generator=gen, device=dev))
+            corpus.append_device(name, torch.randn((step, d), generator=gen, device=dev))
+
+
+def narrow_int8_phase(dev) -> dict:
+    """Phase 19: K6 and K7 on the narrow kernel (``csrc/topk_narrow.cu``)
+    at the int8 cells' width: phase 7's corpus layout at 30,000,000 x 768
+    int8 rows. K6 at b = 8 (one query and 7 zero queries, as the corpus
+    pads one caller's search) and K7 over one and two conversations at b =
+    8, each against its plain version (values within ``TOL_INT8``, every
+    pick's score recomputed, ties only at the k-th value), its launch
+    counters (the narrow one moved), its time beside the plain version's
+    and its bound. Then the crossover: K6 at b = 1, 8, 9, 12 and 16 on the
+    narrow kernel and on the 64-query loop (its entry called directly, as
+    the route never does below 17 queries), in turns."""
+    import torch
+
+    from typeagent_tpu_torch.ops import topk
+    from typeagent_tpu_torch.parallel import CorpusVectorStore
+
+    d = D_NARROW
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 19)
+    corpus = CorpusVectorStore(d, device="cuda", dtype="int8")
+    t0 = time.perf_counter()
+    build_corpus(corpus, gen, dev, CORPUS_INT8_SEG_ROWS, CORPUS_CHUNK, d)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    store = corpus._store
+    emb, sc, count = store.buf, store._scales, store.count
+    n_rows = emb.shape[0]
+    rng = np.random.default_rng(SEED + 19)
+    probe = 13 * CORPUS_INT8_SEG_ROWS + 123  # a mailbox row
+    qs = torch.from_numpy(normed(rng, 16, d)).to(dev)
+    qs[0] = torch.from_numpy(np.asarray(store.get_row(probe), np.float32)).to(dev)
+    padded = torch.zeros((8, d), device=dev)
+    padded[0] = qs[0]
+    seg = torch.arange(n_rows, device=dev) // CORPUS_INT8_SEG_ROWS
+    masks = {convs: torch.isin(seg % 3, torch.tensor([CORPUS_NAMES.index(c) for c in convs], device=dev))
+             .to(torch.int32).contiguous() for convs in (("podcast",), ("podcast", "wiki"))}
+    del seg
+
+    def check(got, ref, q, mask, what):
+        (gv, gi), (pv, pi) = got, ref
+        err = (gv - pv).abs().max().item()
+        require(err <= TOL_INT8, f"{what}: max value error {err}")
+        filled = gi >= 0
+        require(bool((filled.sum(1) == (pi >= 0).sum(1)).all()), f"{what}: filled slots")
+        ids = gi.clamp(min=0).long()
+        require(bool((ids < count)[filled].all()), f"{what}: a row past the count")
+        if mask is not None:
+            require(bool((mask[ids] > 0)[filled].all()), f"{what}: a pick outside the scope")
+        true = torch.einsum("bkd,bd->bk", emb[ids].float(), q.to(torch.bfloat16).float()) * sc[ids]
+        require(bool(((true - gv).abs() <= TOL_INT8)[filled].all()), f"{what}: a reported score")
+        kth = torch.where(pi >= 0, pv, 3.0).min(dim=1, keepdim=True).values
+        other = filled & ~(gi[:, :, None] == pi[:, None, :]).any(dim=2)
+        require(bool((gv >= kth - TOL_INT8)[other].all()), f"{what}: a pick outside the plain top-k")
+        return err
+
+    out = {"phase": 19, "rows": count, "d": d, "k": K_MAIN, "build_s": round(build_s, 3)}
+    cases = {"K6 b8 padded": (padded, None), "K7 b8 one conversation": (qs[:8], ("podcast",)),
+             "K7 b8 two conversations": (qs[:8], ("podcast", "wiki"))}
+    for name, (q, convs) in cases.items():
+        mask = None if convs is None else masks[convs]
+        if mask is None:
+            kern = lambda q=q: topk.fused_topk_q(emb, sc, q, count, K_MAIN)  # noqa: E731
+            plain = lambda q=q: topk.topk_q_plain(emb, sc, q, count, K_MAIN)  # noqa: E731
+        else:
+            kern = lambda q=q, m=mask: topk.fused_topk_mq(emb, sc, q, count, m, K_MAIN)  # noqa: E731
+            plain = lambda q=q, m=mask: topk.topk_mq_plain(emb, sc, q, count, m, K_MAIN)  # noqa: E731
+        kind = "topk_q" if mask is None else "topk_mq"
+        topk.reset_launch_counts()
+        got = kern()
+        torch.cuda.synchronize()
+        counts = topk.launch_counts()
+        require(counts[kind] == 1 and counts[kind + "_narrow"] == 1, f"narrow {name}: route {counts}")
+        err = check(got, plain(), q, mask, f"narrow {name}")
+        if mask is None:
+            require(int(got[1][0, 0]) == probe, f"narrow {name}: the probe did not find itself")
+        ms, plain_ms = in_turns(lambda fn: cuda_ms(fn, iters=3), kern, plain)
+        rows = count if mask is None else int((mask[:count] > 0).sum())
+        extra = rows * 4 + (n_rows * 4 if mask is not None else 0)
+        bound = scan_bound(rows, d, 1, q.shape[0], q.shape[0] * K_MAIN * 8, PEAK_BF16, extra)
+        out[name] = {"kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                     "share": bound[0] / ms, "scope_rows": rows, "max_abs_err": err}
+    # The crossover: the narrow kernel against the 64-query loop at each batch.
+    crossover = {}
+    for b in NARROW_BATCHES:
+        q = qs[:b].contiguous()
+
+        def wide(q=q):
+            return topk._launch_topk("tat_topk_scan_q", topk.TOPK_Q_LAUNCHES, emb, (sc.data_ptr(),),
+                                     q.to(torch.bfloat16), count, K_MAIN, query_block=64)
+
+        narrow = lambda q=q: topk.fused_topk_q(emb, sc, q, count, K_MAIN)  # noqa: E731
+        a, w = narrow(), wide()
+        require(torch.equal(a[1], w[1]) or (a[0] - w[0]).abs().max().item() <= TOL_INT8,
+                f"narrow b={b}: the two routes disagree")
+        narrow_ms, wide_ms = in_turns(lambda fn: cuda_ms(fn, iters=3), narrow, wide)
+        crossover[b] = {"narrow_ms": narrow_ms, "wide_ms": wide_ms, "ratio": narrow_ms / wide_ms}
+    out["crossover"] = crossover
+    del corpus, store, emb, sc, masks
+    torch.cuda.empty_cache()
+    out["by_width"] = narrow_by_width(dev)
+    out["nvidia_smi"] = smi_line()
+    out["ok"] = True
+    return out
+
+
+def narrow_by_width(dev) -> dict:
+    """K6 at b = 8 and 16 over ~6 GB of random int8 codes at each of
+    ``NARROW_WIDTHS``: the narrow kernel's plan (consumer warps, slabs per
+    warp; its ``tat_topk_narrow_plan``, which must equal ``ops/topk.py``
+    ``narrow_plan``), both routes' entries called directly where the plan
+    exists, their answers against each other, their times in turns and the
+    read bound; the route ``int8_query_block`` picks."""
+    import ctypes
+
+    import torch
+
+    from typeagent_tpu_torch.ops import _build, topk
+
+    lib = _build.kernels()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 191)
+    result = {}
+    for d in NARROW_WIDTHS:
+        n_rows = NARROW_WIDE_BYTES // d // 128 * 128
+        count = n_rows - 77
+        emb = torch.randint(-128, 128, (n_rows, d), dtype=torch.int8, generator=gen, device=dev)
+        sc = torch.rand((n_rows,), generator=gen, device=dev) * 1e-2 + 1e-3
+        qs = torch.nn.functional.normalize(torch.randn((16, d), generator=gen, device=dev), dim=1)
+        for b in (8, 16):
+            q = qs[:b].contiguous()
+            warps, stages = ctypes.c_int(0), ctypes.c_int(0)
+            smem = lib.tat_topk_narrow_plan(d, b, ctypes.byref(warps), ctypes.byref(stages))
+            plan = (warps.value, stages.value) if smem >= 0 else None
+            require(plan == topk.narrow_plan(d, b), f"narrow plan at d={d} b={b}: {plan} != {topk.narrow_plan(d, b)}")
+
+            def wide(q=q):
+                return topk._launch_topk("tat_topk_scan_q", topk.TOPK_Q_LAUNCHES, emb, (sc.data_ptr(),),
+                                         q.to(torch.bfloat16), count, K_MAIN, query_block=64)
+
+            bound = scan_bound(count, d, 1, b, b * K_MAIN * 8, PEAK_BF16, count * 4)
+            row = {"plan": plan, "smem": smem, "route": topk.int8_query_block(b, d), "bound_ms": bound[0]}
+            if plan is None:
+                row["wide_ms"] = cuda_ms(wide, iters=3)
+            else:
+                def narrow(q=q, b=b):
+                    return topk._launch_topk(
+                        "tat_topk_scan_q_narrow", topk.TOPK_Q_NARROW_LAUNCHES, emb, (sc.data_ptr(),),
+                        topk.narrow_query_operand(q, b), count, K_MAIN, query_block=b, b=b,
+                        ctas_per_sm=topk._NARROW_CTAS_PER_SM)
+
+                a, w = narrow(), wide()
+                require(torch.equal(a[1], w[1]) or (a[0] - w[0]).abs().max().item() <= TOL_INT8,
+                        f"narrow d={d} b={b}: the two routes disagree")
+                row["narrow_ms"], row["wide_ms"] = in_turns(lambda fn: cuda_ms(fn, iters=3), narrow, wide)
+                row["ratio"] = row["narrow_ms"] / row["wide_ms"]
+            result[f"d{d}_b{b}"] = row
+        del emb, sc, qs
+        torch.cuda.empty_cache()
+    return result
 
 
 CORPUS_SCOPES = {"global": None, "podcast": ["podcast"], "podcast+wiki": ["podcast", "wiki"]}
@@ -2628,6 +2809,7 @@ def main() -> int:
     parser.add_argument("--mesh", action="store_true",
                         help="build the kernels and run phase 17 alone (its own references)")
     parser.add_argument("--tools", action="store_true", help="build the kernels and run phase 18 alone")
+    parser.add_argument("--narrow-int8", action="store_true", help="build the kernels and run phase 19 alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke runs only on the card", file=sys.stderr)
@@ -2654,6 +2836,12 @@ def main() -> int:
         out17, _ = asyncio.run(mesh_phase(torch.device("cuda", 0)))
         out17.update({"nvidia_smi": smi_line(), "ok": True})
         emit(out17)
+        return 0
+    if args.narrow_int8:
+        print(smi_line(), flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        _build.kernels()
+        emit(narrow_int8_phase(torch.device("cuda", 0)))
         return 0
     if args.tools:
         print(smi_line(), flush=True)
@@ -3052,16 +3240,17 @@ def main() -> int:
         (64, 256), (10,), "1M",
     )
 
-    # The listed scans at 1M x 384: K6 and K7 on the tensor-core loop over
-    # int8 rows, K4 (the scope's interval table) and K5 (its row mask) on
+    # The listed scans at 1M x 384: K6 and K7 over int8 rows (the narrow
+    # kernel at b = 1 and 8, the tensor-core loop at 64 and 256), K4 (the scope's interval table) and K5 (its row mask) on
     # the FFMA tile over f32 and bf16 rows (the global scope is K6, and for
     # K4 and K5 the whole store). Every row of `dupes` is one row (query 0),
     # so each scope's top-k of query 0 starts with its in-scope duplicates
     # in ascending order: through skipped tiles, list shares and row splits
-    # (3839 | 3840 at b <= 64, 15231 | 15232 at b = 256).
+    # (7679 | 7680 for K6 and K7 on the narrow kernel at b <= 16, 3839 | 3840
+    # elsewhere at b <= 64, 15231 | 15232 at b = 256).
     t = 128
     dupes = sorted([10 * t + 6, 41 * t + 127, 100 * t, 301 * t - 1, 301 * t + 5, 302 * t, 3839, 3840,
-                    15231, 15232, 5000 * t + 3, 999_999, 1_000_100])
+                    7679, 7680, 15231, 15232, 5000 * t + 3, 999_999, 1_000_100])
     m_dev[dupes] = m_dev[dupes[0]].clone()
     # Rows past the count hold data; the listed f32 cases are held to 1e-6.
     stores = {"int8": (*quantized_store(m_dev, n_pad), TOL_INT8), "float32": (m_dev, None, 1e-6),
@@ -3071,8 +3260,10 @@ def main() -> int:
     for b in (1, 8, 64, 256):
         q = qs[:b].contiguous()
         for dname, (emb, sc, tol) in stores.items():
-            query_block = 64 if sc is not None else topk.topk_query_block(b)
-            edge, _ = topk.scan_geometry(count, n_pad, b, topk._sm_count(0), query_block)
+            if sc is not None:
+                edge, _ = topk.int8_scan_geometry(count, n_pad, b, topk._sm_count(0), D_MAIN)
+            else:
+                edge, _ = topk.scan_geometry(count, n_pad, b, topk._sm_count(0), topk.topk_query_block(b))
             scopes = {
                 "global": None,
                 "gaps": [(10 * t + 5, 10 * t + 70), (40 * t, 42 * t), (5000 * t + 3, 5000 * t + 4), (7812 * t, n_pad)],
@@ -3108,7 +3299,7 @@ def main() -> int:
                         kernel_err[name] = max(kernel_err[name], err)
                         top = got[1][0, : min(k, len(want))].tolist()
                         require(top == want[: len(top)], f"{what}: tie rule {got[1][0].tolist()}")
-                        if not want:
+                        if not bool((mask[:count] > 0).any()):
                             require(bool((got[0] == -3.0).all()) and bool((got[1] == -1).all()),
                                     f"{what}: an empty scope gave hits")
                         checks += 1
@@ -3605,6 +3796,9 @@ def main() -> int:
     emit(corpus_phase(7, "int8", CORPUS_INT8_SEG_ROWS, TOL_INT8, 0.999, False))
     gc.collect()
     torch.cuda.empty_cache()
+    emit(narrow_int8_phase(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def padded_queries(q_host: np.ndarray, d_pad: int) -> torch.Tensor:
         q = torch.zeros((q_host.shape[0], d_pad), device=dev)
@@ -4092,6 +4286,9 @@ def main() -> int:
     }
     for entry, kernel in SHAPE_ENTRIES.items():
         sources[entry] = sources[kernel]
+    # K6 at b = 8 takes the narrow kernel where its plan fits the width.
+    if topk.int8_query_block(8, D_MAIN) < 64:
+        sources["topk_q_1m_b8"] = ("csrc/topk_narrow.cu", sources["topk_q"][1])
     print(smi_line(), flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"typeagent_tpu_torch/{src}", "replaces": rep,

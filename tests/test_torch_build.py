@@ -134,9 +134,18 @@ def test_each_topk_entry_point_is_defined_in_one_part(part, names):
     assert merge == [0]  # the one non-template kernel, defined once
 
 
+def _narrow_entries():
+    """The entry points of ``topk_narrow.cu`` (K6 and K7 up to 16 queries),
+    a unit of its own."""
+    with open(os.path.join(_build.CSRC_DIR, "topk_narrow.cu")) as f:
+        return re.findall(r'^extern "C" int (\w+)\(', f.read(), re.M)
+
+
 def test_the_parts_define_every_topk_entry_point_the_loader_declares():
     entries, _ = _topk_parts()
-    defined = sorted(n for names in entries.values() for n in names)
+    narrow = _narrow_entries()
+    assert narrow == ["tat_topk_narrow_plan", "tat_topk_scan_q_narrow", "tat_topk_scan_mq_narrow"]
+    defined = sorted([n for names in entries.values() for n in names] + narrow)
     declared = sorted(n for n in _declare_names() if n.startswith("tat_topk_"))
     assert defined == declared
 

@@ -11,6 +11,8 @@ bf16 stores and the int8 and int4 shadows 1e-5 (exact bf16 products, f32
 sums, times the row's scale).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -468,17 +470,37 @@ def _int8_scope(name, edge):
     }[name]
 
 
+@functools.lru_cache(maxsize=None)
+def _int8_rows(d):
+    m = np.random.default_rng(30 + d).standard_normal((_I8_N, d)).astype(np.float32)
+    return m / np.linalg.norm(m, axis=1, keepdims=True)
+
+
+def _int8_route_moved(b, d, scoped):
+    """The launch counters of one K6 or K7 search at batch b over a store d
+    wide: the kind's counter once, and its narrow counter once where the
+    route takes the narrow kernel (up to 16 queries, a plan for d)."""
+    counts = topk.launch_counts()
+    kind = "topk_mq" if scoped else "topk_q"
+    narrow = topk.int8_query_block(b, d) < 64
+    assert counts[kind] == 1 and counts["topk_q" if scoped else "topk_mq"] == 0
+    assert counts[kind + "_narrow"] == int(narrow)
+    assert counts[("topk_q" if scoped else "topk_mq") + "_narrow"] == 0
+
+
 @pytest.mark.parametrize("scope", ["global", "gaps", "split_edge", "skipped_dupes", "all", "empty", "past_count"])
-@pytest.mark.parametrize("b", [1, 8, 16, 64, 256])
 @pytest.mark.parametrize("k", [1, 10, 32])
-def test_int8_scans_match_plain(dev, scope, b, k):
+@pytest.mark.parametrize("b,d", [(b, d) for d in (384, 768) for b in (1, 3, 8, 9, 16, 17, 64, 256)]
+                         + [(b, d) for d in (3072, 4096) for b in (8, 16)])
+def test_int8_scans_match_plain(dev, scope, b, k, d):
+    """K6 and K7 on both routes (the narrow kernel up to 16 queries where
+    its plan fits the width, the 64-query loop above and at rows too wide),
+    with the split edge of the route's own grid."""
     rng = np.random.default_rng(30)
-    d = 384
-    edge, _ = topk.scan_geometry(_I8_COUNT, _I8_N, b, topk._sm_count(0), 64)
+    edge, _ = topk.int8_scan_geometry(_I8_COUNT, _I8_N, b, topk._sm_count(0), d)
     spans, dupes = _int8_scope(scope, edge)
     dupes = sorted(set(dupes))  # the split edge may be a tile edge listed already
-    m = rng.standard_normal((_I8_N, d)).astype(np.float32)
-    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    m = _int8_rows(d).copy()
     m[dupes] = m[dupes[0]]
     q_rows, scales = topk.quantize_rows(m)
     emb, sc = torch.from_numpy(q_rows).to(dev), torch.from_numpy(scales).to(dev)
@@ -496,7 +518,7 @@ def test_int8_scans_match_plain(dev, scope, b, k):
         got = topk.fused_topk_mq(emb, sc, q, _I8_COUNT, mask, k)
         ref = topk.topk_mq_plain(emb, sc, q, _I8_COUNT, mask, k)
     torch.cuda.synchronize()
-    assert topk.launch_counts()["topk_q" if spans is None else "topk_mq"] == 1
+    _int8_route_moved(b, d, spans is not None)
     raw = topk._raw_scores_q(emb, sc, q, _I8_COUNT).masked_fill(~(mask > 0), -3.0)
     _check_scan(got, ref, raw, 1e-5)
     want = [r for r in dupes if r < _I8_COUNT and mask[r].item() > 0][:k]
@@ -508,8 +530,10 @@ def test_int8_scans_match_plain(dev, scope, b, k):
 @pytest.mark.parametrize("d", [128, 512, 1536])
 @pytest.mark.parametrize("b", [8, 64, 257])
 def test_int8_scans_resident_and_streamed_queries(dev, d, b):
-    """d = 128: resident queries, scores folded in two passes; d = 512 and
-    1536: streamed query strips, one pass."""
+    """The 64-query loop (b = 64, 257): d = 128, resident queries, scores
+    folded in two passes; d = 512 and 1536, streamed query strips, one
+    pass. The narrow kernel (b = 8): 8 consumer warps of two or more slabs
+    each, and at d = 1536 four warps of two."""
     rng = np.random.default_rng(31)
     n_pad, count = 9216, 9000 - 45
     m = rng.standard_normal((n_pad, d)).astype(np.float32)
@@ -525,11 +549,14 @@ def test_int8_scans_resident_and_streamed_queries(dev, d, b):
     _check_scan(got, topk.topk_mq_plain(emb, sc, q, count, mask, 10), raw, 1e-5)
 
 
-def test_fused_topk_mq_does_not_synchronize(dev):
-    """The scope's tile list is built on the device: K7 never waits on the
-    host (a LookupBatcher pipelines batches through it)."""
+@pytest.mark.parametrize("b", [8, 40])
+def test_fused_topk_mq_does_not_synchronize(dev, b):
+    """The scope's tile list is built on the device, as the narrow route's
+    query block: K7 never waits on the host (a LookupBatcher pipelines
+    batches through it)."""
     rng = np.random.default_rng(32)
     emb, sc, q, count = _int8_case(dev, rng)
+    q = q[:b].contiguous()
     mask = topk.intervals_to_rowmask(
         emb.shape[0], torch.tensor([[0, 1000], [2048, 2049], [8000, 9216]], dtype=torch.int32, device=dev)
     )[0].contiguous()
@@ -544,6 +571,82 @@ def test_fused_topk_mq_does_not_synchronize(dev):
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     cpu_tiles, cpu_n = topk.scope_tiles(mask.cpu(), count)
     assert torch.equal(tiles.cpu(), cpu_tiles) and torch.equal(n_tiles.cpu(), cpu_n)
+
+
+@pytest.mark.parametrize("scoped", [False, True])
+@pytest.mark.parametrize("d", [384, 768])
+def test_int8_scans_with_the_corpus_padding(dev, scoped, d):
+    """One caller's query padded to 8 with 7 zero queries, as the corpus
+    sends it: the narrow kernel, the zero queries' lists included."""
+    rng = np.random.default_rng(33)
+    n_pad, count = 9216, 9000 - 45
+    m = rng.standard_normal((n_pad, d)).astype(np.float32)
+    m /= np.linalg.norm(m, axis=1, keepdims=True)
+    q_rows, scales = topk.quantize_rows(m)
+    emb, sc = torch.from_numpy(q_rows).to(dev), torch.from_numpy(scales).to(dev)
+    q = torch.zeros((8, d), device=dev)
+    q[0] = _queries(rng, 1, d, dev)[0]
+    mask = torch.from_numpy((rng.random(n_pad) < 0.5).astype(np.int32)).to(dev)
+    raw = topk._raw_scores_q(emb, sc, q, count)
+    topk.reset_launch_counts()
+    if scoped:
+        got = topk.fused_topk_mq(emb, sc, q, count, mask, 10)
+        ref = topk.topk_mq_plain(emb, sc, q, count, mask, 10)
+        raw = raw.masked_fill(~(mask > 0), -3.0)
+    else:
+        got = topk.fused_topk_q(emb, sc, q, count, 10)
+        ref = topk.topk_q_plain(emb, sc, q, count, 10)
+    torch.cuda.synchronize()
+    _int8_route_moved(8, d, scoped)
+    _check_scan(got, ref, raw, 1e-5)
+    # A zero query scores 0 everywhere: its ten lowest live (in-scope) rows.
+    live = [r for r in range(count) if not scoped or mask[r].item() > 0][:10]
+    assert got[1][1:].tolist() == [live] * 7 and bool((got[0][1:] == 0).all())
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 64])
+def test_int8_scans_take_every_code(dev, b):
+    """Rows that hold all 256 codes (-128 and 127 included), each code in
+    every column somewhere, scaled by one: the kernel's conversion against
+    the plain version's exact upcast."""
+    rng = np.random.default_rng(34)
+    n_pad, d = 4096, 768
+    codes = (np.arange(n_pad)[:, None] * 7 + np.arange(d)[None, :] * 13) % 256 - 128
+    emb = torch.from_numpy(codes.astype(np.int8)).to(dev)
+    sc = torch.full((n_pad,), 1.0 / 4096, device=dev)
+    q = _queries(rng, b, d, dev)
+    topk.reset_launch_counts()
+    got = topk.fused_topk_q(emb, sc, q, n_pad - 5, 32)
+    ref = topk.topk_q_plain(emb, sc, q, n_pad - 5, 32)
+    torch.cuda.synchronize()
+    _int8_route_moved(b, d, False)
+    _check_scan(got, ref, topk._raw_scores_q(emb, sc, q, n_pad - 5), 1e-5)
+    # Row r repeats row r + 256: the best pattern's 15 live copies, lowest first.
+    assert got[1][:, :15].tolist() == ref[1][:, :15].tolist()
+
+
+def test_narrow_plan_mirrors_the_kernel(dev):
+    """ops/topk.py narrow_plan, which picks the route, gives the plan the
+    kernel launches with (tat_topk_narrow_plan) at every width up to 8192."""
+    import ctypes
+
+    from typeagent_tpu_torch.ops import _build
+
+    lib = _build.kernels()
+    for width in range(64, 8193, 64):
+        for query_block in (8, 16):
+            warps, stages = ctypes.c_int(0), ctypes.c_int(0)
+            smem = lib.tat_topk_narrow_plan(width, query_block, ctypes.byref(warps), ctypes.byref(stages))
+            plan = (warps.value, stages.value) if smem >= 0 else None
+            assert plan == topk.narrow_plan(width, query_block), (width, query_block)
+
+
+def test_narrow_int8_scans_reject_unaligned_scales(dev):
+    emb = torch.zeros((1024, 128), dtype=torch.int8, device=dev)
+    scales = torch.ones(1028, device=dev)[4:]  # 16-byte aligned
+    topk.fused_topk_q(emb, scales, torch.ones((8, 128), device=dev), 1000, 5)
+    with pytest.raises(ValueError):
+        topk.fused_topk_q(emb, torch.ones(1025, device=dev)[1:], torch.ones((8, 128), device=dev), 1000, 5)
 
 
 def _float_scope(name, edge):
@@ -756,8 +859,9 @@ def test_corpus_on_cuda_matches_cpu_corpus(dev, dtype):
             corpus.append(name, rows)
         out[device] = [corpus.search(q, k=10, conversations=c) for c in (None, ["a"], ["a", "c"])]
     counts = topk.launch_counts()
-    if dtype == "int8":
+    if dtype == "int8":  # 9 queries, padded to 16: the narrow route
         assert counts["topk_q"] == 1 and counts["topk_mq"] == 2
+        assert counts["topk_q_narrow"] == 1 and counts["topk_mq_narrow"] == 2
     else:
         assert counts["topk"] == 1 and counts["topk_iv"] == 1 and counts["topk_mask"] == 1
     for got, want in zip(out["cuda"], out["cpu"]):

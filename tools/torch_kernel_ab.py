@@ -45,7 +45,15 @@ intervals, a row mask), and the corpus's own search (host clock), global
 and for one conversation. Then the int8 corpus of chip_smoke.py phase 7,
 30,000,000 x 384 int8 rows in 24 segments of 1,250,000 in the same layout:
 K6 (global) and K7 scoped to one conversation (8 segments) and to two
-(16), and the corpus's own search, global and for one conversation. In a
+(16), and the corpus's own search, global and for one conversation. Then
+the same int8 corpus 768 wide (--only int8-768), the narrow route's shape:
+K6 at b = 8, 16 and 32 (the narrow kernel's two query blocks and the
+64-query loop above them, where the tree has the narrow kernel), K7 at b =
+8 over one and two conversations and at b = 16 over one, and the corpus's
+own one-query search, global and for one conversation. Then K6 over
+~6 GB of random int8 codes 1536, 3072 and 4096 wide at b = 8 and 16
+(--only int8-wide): where the narrow kernel's plan has fewer consumer
+warps or slabs, or none (the 64-query loop). In a
 tree that lists tiles with a kernel, each scoped corpus case also times
 its tile list alone (``interval_tiles ...``, ``scope_tiles ...``); the
 last line gives such a case's time with no base where the base tree
@@ -70,6 +78,8 @@ N, D, K = 1_000_000, 384, 10
 CORPUS_F32_SEG_ROWS = 416_000
 CORPUS_SEG_ROWS, CORPUS_SEGMENTS = 1_250_000, 24
 CORPUS_NAMES = ("podcast", "mailbox", "wiki")
+# --only int8-wide: K6 over ~6 GB of random int8 codes at these widths.
+WIDE_WIDTHS, WIDE_BYTES = (1536, 3072, 4096), 6_000_000_000
 
 
 def profile(fn, iters: int = 5) -> dict:
@@ -261,14 +271,14 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
     cases = {name: fn for name, fn in cases.items() if wanted(name)}
     out = {name: (host_ms if name.endswith("(host)") else cuda_ms)(fn) for name, fn in cases.items()}
 
-    def make_corpus(dtype, seg_rows):
+    def make_corpus(dtype, seg_rows, d=D):
         from typeagent_tpu_torch.parallel import CorpusVectorStore
 
-        corpus = CorpusVectorStore(D, device="cuda", dtype=dtype)
+        corpus = CorpusVectorStore(d, device="cuda", dtype=dtype)
         corpus.reserve(seg_rows * CORPUS_SEGMENTS)
         for seg in range(CORPUS_SEGMENTS):
             for done in range(0, seg_rows, 500_000):
-                corpus.append_device(CORPUS_NAMES[seg % 3], unit(min(500_000, seg_rows - done)))
+                corpus.append_device(CORPUS_NAMES[seg % 3], unit(min(500_000, seg_rows - done), d))
         return corpus
 
     q64_host = q64.cpu().numpy()
@@ -338,6 +348,54 @@ def child(root: str, profiled: list[str], only: list[str]) -> dict:
                     add_list_case("scope_tiles " + name[3:], lambda m30=m30: topk.scope_tiles(m30, n30))
                 out[name] = cuda_ms(fn, iters=5)
             cases[name] = fn
+    cases_768 = {
+        "K6 int8-768 30M b8": (8, None),
+        "K6 int8-768 30M b16": (16, None),
+        "K6 int8-768 30M b32": (32, None),
+        "K7 int8-768 30M b8 one conversation": (8, ("podcast",)),
+        "K7 int8-768 30M b8 two conversations": (8, ("podcast", "wiki")),
+        "K7 int8-768 30M b16 one conversation": (16, ("podcast",)),
+        "corpus int8-768 30M b1 global (host)": (1, None),
+        "corpus int8-768 30M b1 one conversation (host)": (1, ("podcast",)),
+    }
+    cases_768 = {name: case for name, case in cases_768.items() if wanted(name)}
+    if cases_768:
+        torch.cuda.empty_cache()
+        corpus768 = make_corpus("int8", CORPUS_SEG_ROWS, 768)
+        codes768, sc768, n768 = corpus768._store.buf, corpus768._store._scales, corpus768._store.count
+        q768 = unit(32, 768)
+        for name, (b, convs) in cases_768.items():
+            q = q768[:b].contiguous()
+            if name.endswith("(host)"):
+                q_host768 = q.cpu().numpy()
+                fn = lambda q_host768=q_host768, convs=convs: corpus768.search(  # noqa: E731
+                    q_host768, k=K, conversations=convs)
+                out[name] = host_ms(fn, iters=5)
+            else:
+                if convs is None:
+                    fn = lambda q=q: topk.fused_topk_q(codes768, sc768, q, n768, K)  # noqa: E731
+                else:
+                    m768 = conversation_mask(codes768.shape[0], CORPUS_SEG_ROWS,
+                                             tuple(CORPUS_NAMES.index(c) for c in convs))
+                    fn = lambda q=q, m768=m768: topk.fused_topk_mq(  # noqa: E731
+                        codes768, sc768, q, n768, m768, K)
+                out[name] = cuda_ms(fn, iters=5)
+            cases[name] = fn
+    wide_cases = {f"K6 int8-wide d{d} b{b}": (d, b) for d in WIDE_WIDTHS for b in (8, 16)}
+    wide_cases = {name: case for name, case in wide_cases.items() if wanted(name)}
+    for d in sorted({d for d, _ in wide_cases.values()}):
+        torch.cuda.empty_cache()
+        n_wide = WIDE_BYTES // d // 128 * 128
+        codes_w = torch.randint(-128, 128, (n_wide, d), dtype=torch.int8, generator=gen, device=dev)
+        sc_w = torch.rand((n_wide,), generator=gen, device=dev) * 1e-2 + 1e-3
+        q_w = unit(16, d)
+        for name, (dw, b) in wide_cases.items():
+            if dw == d:
+                fn = lambda q=q_w[:b].contiguous(), codes_w=codes_w, sc_w=sc_w, n=n_wide: (  # noqa: E731
+                    topk.fused_topk_q(codes_w, sc_w, q, n - 77, K))
+                out[name] = cuda_ms(fn, iters=5)
+                cases[name] = fn
+        del codes_w, sc_w
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     return {"root": root, "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "ms": out,

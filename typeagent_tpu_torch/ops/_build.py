@@ -27,7 +27,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
-KERNEL_SOURCES = ("topk.cu", "bucket_maxima.cu", "rescore.cu", "tile_list.cu")
+KERNEL_SOURCES = ("topk.cu", "bucket_maxima.cu", "rescore.cu", "tile_list.cu", "topk_narrow.cu")
 # Compile units: (source, its own flags). topk.cu compiles in four parts
 # (its TOPK_PART), each no longer than bucket_maxima.cu alone.
 KERNEL_UNITS = tuple(
@@ -156,6 +156,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "tat_topk_scan_mask": [p, i32, *geometry, p, p, p, *tail],
         "tat_topk_scan_q": [p, p, *geometry, *tail],
         "tat_topk_scan_mq": [p, p, *geometry, p, p, p, *tail],
+        # K6 and K7 at b <= 16 (topk_narrow.cu): q is the permuted query block.
+        "tat_topk_scan_q_narrow": [p, p, *geometry, *tail],
+        "tat_topk_scan_mq_narrow": [p, p, *geometry, p, p, p, *tail],
+        # (width, query_block, *warps, *stages) -> shared memory bytes or -1
+        "tat_topk_narrow_plan": [i32, i32, p, p],
         "tat_topk_merge": [p, p, i32, i32, i32, p, p, p],
         # (..., count, buckets_per_cta, ctas_per_qb[, query_block], out, ...)
         "tat_bucket_maxima": [p, i32, p, i64, i32, i32, i64, i64, i32, i32, p, p, p],

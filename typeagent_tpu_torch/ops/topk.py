@@ -11,7 +11,10 @@ the exact routes:
     K5 ``fused_topk_masked`` (rows whose i32 mask entry is > 0),
     K6 ``fused_topk_q`` (int8 rows with per-row scales) and
     K7 ``fused_topk_mq`` (K6 with K5's mask), the last two on the
-    tensor-core loop of K8 (``csrc/mma_tile.cuh``); the scoped scans K4,
+    tensor-core loop of K8 (``csrc/mma_tile.cuh``) above 16 queries and
+    on their own narrow kernel (``csrc/topk_narrow.cu``) at up to 16
+    where its plan fits the width (:func:`int8_query_block`); the scoped
+    scans K4,
     K5 and K7 read only the tiles that hold an in-scope row, which
     :func:`interval_tiles` and :func:`scope_tiles` list on the device
     (``csrc/tile_list.cu``);
@@ -134,6 +137,21 @@ _MMA_QB = 64
 # 113 KB of shared memory (csrc/tile.cuh SMEM_2CTA): two CTAs share an SM,
 # so one wave of the grid is 2 x the SM count.
 _CTAS_PER_SM = 2
+# K6 and K7 take the narrow kernel (csrc/topk_narrow.cu: one or two 8-query
+# tiles, ~200 KB of shared memory, one CTA per SM) up to this batch, the
+# 64-query loop above it (PERF.md: the crossover at 30M x 768).
+_NARROW_MAX_B = 16
+_NARROW_CTAS_PER_SM = 1
+# The narrow kernel's launch plan (csrc/topk_narrow.cu plan()), mirrored to
+# pick the route by shape: an H100 block's dynamic shared memory, the
+# kernel's mbarriers, rows per slab, and the (consumer warps, least slabs
+# per warp) it tries in turn. Rows too wide for any of them take the
+# 64-query loop (PERF.md: the narrow kernel against the loop by width).
+_NARROW_SMEM_MAX = 232448
+_NARROW_BARRIERS = 2 * 8 * 8 * 8
+_NARROW_MT = 16
+_NARROW_MAX_STAGES = 8
+_NARROW_TRIES = ((8, 2), (4, 2), (2, 2), (8, 1), (4, 1), (2, 1))
 
 
 class LaunchCounter:
@@ -158,6 +176,9 @@ TOPK_IV_LAUNCHES = LaunchCounter("topk_iv")
 TOPK_MASK_LAUNCHES = LaunchCounter("topk_mask")
 TOPK_Q_LAUNCHES = LaunchCounter("topk_q")
 TOPK_MQ_LAUNCHES = LaunchCounter("topk_mq")
+# The K6 and K7 launches (counted above too) that took the narrow kernel.
+TOPK_Q_NARROW_LAUNCHES = LaunchCounter("topk_q_narrow")
+TOPK_MQ_NARROW_LAUNCHES = LaunchCounter("topk_mq_narrow")
 BUCKET_MAXIMA_LAUNCHES = LaunchCounter("bucket_maxima")
 BUCKET_ARGMAX_LAUNCHES = LaunchCounter("bucket_argmax")
 BUCKET_MAXIMA_Q_LAUNCHES = LaunchCounter("bucket_maxima_q")
@@ -172,9 +193,10 @@ SCOPE_TILES_LAUNCHES = LaunchCounter("scope_tiles")
 MATERIALIZED_CALLS = LaunchCounter("materialized_topk")
 COUNTERS = (
     TOPK_LAUNCHES, TOPK_IV_LAUNCHES, TOPK_MASK_LAUNCHES, TOPK_Q_LAUNCHES,
-    TOPK_MQ_LAUNCHES, BUCKET_MAXIMA_LAUNCHES, BUCKET_ARGMAX_LAUNCHES,
-    BUCKET_MAXIMA_Q_LAUNCHES, BUCKET_MAXIMA_Q4_LAUNCHES, RESCORE_LAUNCHES,
-    INTERVAL_TILES_LAUNCHES, SCOPE_TILES_LAUNCHES, MATERIALIZED_CALLS,
+    TOPK_MQ_LAUNCHES, TOPK_Q_NARROW_LAUNCHES, TOPK_MQ_NARROW_LAUNCHES,
+    BUCKET_MAXIMA_LAUNCHES, BUCKET_ARGMAX_LAUNCHES, BUCKET_MAXIMA_Q_LAUNCHES,
+    BUCKET_MAXIMA_Q4_LAUNCHES, RESCORE_LAUNCHES, INTERVAL_TILES_LAUNCHES,
+    SCOPE_TILES_LAUNCHES, MATERIALIZED_CALLS,
 )
 
 
@@ -312,26 +334,92 @@ def topk_query_block(b: int) -> int:
     return min(64, max(8, 1 << (max(b, 1) - 1).bit_length()))
 
 
-def split_range(n: int, n_qb: int, sms: int) -> tuple[int, int]:
+def split_range(
+    n: int, n_qb: int, sms: int, ctas_per_sm: int = _CTAS_PER_SM
+) -> tuple[int, int]:
     """Cut ``n`` tiles (at least one) into contiguous ranges for one wave of
-    ``_CTAS_PER_SM * sms`` CTAs shared by ``n_qb`` query blocks. Returns
+    ``ctas_per_sm * sms`` CTAs shared by ``n_qb`` query blocks. Returns
     ``(per, ranges)``: range ``i`` is ``[i*per, min((i+1)*per, n))`` and
     none is empty."""
     n = max(1, n)
-    ranges = min(n, max(1, _CTAS_PER_SM * sms // n_qb))
+    ranges = min(n, max(1, ctas_per_sm * sms // n_qb))
     per = math.ceil(n / ranges)
     return per, math.ceil(n / per)
 
 
-def scan_geometry(count: int, n_rows: int, b: int, sms: int, query_block: int) -> tuple[int, int]:
-    """``(rows_per_split, splits)`` of a top-k scan (``csrc/topk.cu``) over
-    rows ``[0, count)`` of an ``n_rows`` store: split ``i`` scans rows
-    ``[i*rows_per_split, (i+1)*rows_per_split)`` below the count, in
-    128-row tiles, for each of the ``ceil(b / query_block)`` query blocks.
-    A dead store keeps one (empty) split, whose lists stay unfilled."""
+def scan_geometry(
+    count: int, n_rows: int, b: int, sms: int, query_block: int,
+    ctas_per_sm: int = _CTAS_PER_SM,
+) -> tuple[int, int]:
+    """``(rows_per_split, splits)`` of a top-k scan (``csrc/topk.cu``,
+    ``csrc/topk_narrow.cu``) over rows ``[0, count)`` of an ``n_rows``
+    store: split ``i`` scans rows ``[i*rows_per_split,
+    (i+1)*rows_per_split)`` below the count, in 128-row tiles, for each of
+    the ``ceil(b / query_block)`` query blocks, with ``ctas_per_sm`` CTAs
+    to an SM. A dead store keeps one (empty) split, whose lists stay
+    unfilled."""
     count = max(0, min(int(count), n_rows))
-    per, splits = split_range(math.ceil(count / _RB), math.ceil(b / query_block), sms)
+    per, splits = split_range(
+        math.ceil(count / _RB), math.ceil(b / query_block), sms, ctas_per_sm
+    )
     return per * _RB, splits
+
+
+def narrow_plan(width: int, query_block: int) -> tuple[int, int] | None:
+    """``(consumer warps, slabs per warp)`` of the narrow K6/K7 at a store
+    width (a multiple of 64) and query block (8 or 16), as
+    ``csrc/topk_narrow.cu`` ``plan()`` picks them, or None where no plan
+    fits its shared memory: the permuted queries (``16 * query_block / 8 *
+    width`` bytes) and a ring of 16-row slabs (``16 * width + 64`` bytes)."""
+    if query_block not in (8, 16) or width <= 0 or width % 64:
+        return None
+    avail = _NARROW_SMEM_MAX - _NARROW_BARRIERS - 2 * query_block * width
+    slab = _NARROW_MT * width + _NARROW_MT * 4
+    for warps, least in _NARROW_TRIES:
+        stages = min(_NARROW_MAX_STAGES, avail // (warps * slab))
+        if stages >= least:
+            return warps, stages
+    return None
+
+
+def int8_query_block(b: int, width: int) -> int:
+    """Queries per CTA of K6 and K7, by the shape: 8 or 16 on the narrow
+    kernel (``csrc/topk_narrow.cu``) up to 16 queries where its plan fits
+    the width (:func:`narrow_plan`), as the read of the codes bounds such a
+    scan and each code is converted once per 8 or 16 queries; else 64 on
+    the tensor-core loop (``csrc/topk.cu``), which converts each code once
+    per 64 and streams its query strips at any width."""
+    if b > _NARROW_MAX_B:
+        return _MMA_QB
+    query_block = 8 if b <= 8 else 16
+    return query_block if narrow_plan(width, query_block) is not None else _MMA_QB
+
+
+def int8_scan_geometry(count: int, n_rows: int, b: int, sms: int, width: int) -> tuple[int, int]:
+    """:func:`scan_geometry` of K6 and K7 at batch ``b`` over a store
+    ``width`` wide: the route's own query block (:func:`int8_query_block`)
+    and CTAs per SM."""
+    query_block = int8_query_block(b, width)
+    ctas = _CTAS_PER_SM if query_block == _MMA_QB else _NARROW_CTAS_PER_SM
+    return scan_geometry(count, n_rows, b, sms, query_block, ctas)
+
+
+def narrow_query_operand(queries: torch.Tensor, query_block: int) -> torch.Tensor:
+    """The narrow K6/K7's query operand: ``queries`` ([b, d_pad] f32, b <=
+    ``query_block``, 8 or 16) cast to bf16, padded with zero queries to the
+    block, and laid out in ``mma.sync`` B-fragment order with the kernel's
+    depth permutation, as ``[n-tile, d_pad / 64, 2, 32 lanes, 8]`` bf16.
+    Lane ``4*g + t`` of half ``h`` of 64-deep strip ``s`` holds, for query
+    ``8*n-tile + g`` and k-steps ``j = 2h, 2h + 1``, columns ``64s + 16t +
+    4j + (0, 2, 1, 3)``: the codes the kernel's lane ``(g, t)`` reads as one
+    word per k-step, even bytes then odd bytes."""
+    b, d_pad = queries.shape
+    q = torch.zeros((query_block, d_pad), dtype=torch.bfloat16, device=queries.device)
+    q[:b] = queries
+    # column 64s + 16t + 4(2h + jj) + 2*elem + pair -> (nt, s, h, g, t, jj, pair, elem)
+    q = q.view(query_block // 8, 8, d_pad // 64, 4, 2, 2, 2, 2)
+    q = q.permute(0, 2, 4, 1, 3, 5, 7, 6).contiguous()
+    return q.view(query_block // 8, d_pad // 64, 2, 32, 8)
 
 
 def scope_share(n_tiles: int, splits: int, split: int) -> tuple[int, int]:
@@ -430,22 +518,26 @@ def _topk_chunked(raw_of, n_rows: int, k: int) -> tuple[torch.Tensor, torch.Tens
 def _launch_topk(
     entry: str, counter: LaunchCounter, emb: torch.Tensor, head: tuple,
     queries: torch.Tensor, count: int, k: int, tail: tuple = (),
-    query_block: int | None = None,
+    query_block: int | None = None, b: int | None = None,
+    ctas_per_sm: int = _CTAS_PER_SM,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch one scan entry point of ``csrc/topk.cu`` and the merge:
-    ``entry(emb, *head, q, n_rows, d_pad, b, count, k, rows_per_split,
-    splits, query_block, *tail, cand_vals, cand_idx, stream)``. Operands
-    are checked by the caller. ``query_block`` defaults to the FFMA tile's
-    (:func:`topk_query_block`)."""
+    """Launch one scan entry point of ``csrc/topk.cu`` or
+    ``csrc/topk_narrow.cu`` and the merge: ``entry(emb, *head, q, n_rows,
+    d_pad, b, count, k, rows_per_split, splits, query_block, *tail,
+    cand_vals, cand_idx, stream)``. Operands are checked by the caller.
+    ``query_block`` defaults to the FFMA tile's (:func:`topk_query_block`);
+    ``b`` to the rows of ``queries`` (the narrow scans pass a permuted
+    block)."""
     if not 1 <= k <= _PALLAS_MAX_K:
         raise ValueError(f"fused top-k takes 1 <= k <= {_PALLAS_MAX_K}, got {k}")
     n_rows, d_pad = emb.shape
-    b = queries.shape[0]
+    if b is None:
+        b = queries.shape[0]
     count = max(0, min(int(count), n_rows))
     if query_block is None:
         query_block = topk_query_block(b)
     rows_per_split, splits = scan_geometry(
-        count, n_rows, b, _sm_count(emb.device.index), query_block
+        count, n_rows, b, _sm_count(emb.device.index), query_block, ctas_per_sm
     )
     dev = emb.device
     cand_v = torch.empty((b, splits, k), dtype=torch.float32, device=dev)
@@ -575,19 +667,45 @@ def topk_q_plain(
     )
 
 
+def _launch_int8_scan(
+    wide: str, narrow: str, counter: LaunchCounter, narrow_counter: LaunchCounter,
+    emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor, count: int,
+    k: int, tail: tuple = (),
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6 or K7 on the route :func:`int8_query_block` picks for the shape:
+    the narrow kernel's entry with the permuted query block, or the
+    64-query loop's with the bf16 queries. Both count in ``counter``."""
+    b = queries.shape[0]
+    query_block = int8_query_block(b, emb_q.shape[1])
+    if query_block == _MMA_QB:
+        return _launch_topk(
+            wide, counter, emb_q, (scales.data_ptr(),), queries.to(torch.bfloat16), count,
+            k, tail, query_block=query_block,
+        )
+    if scales.data_ptr() % 16:
+        raise ValueError("the narrow int8 scans copy 16-byte pieces: scales must be 16-byte aligned")
+    out = _launch_topk(
+        narrow, counter, emb_q, (scales.data_ptr(),), narrow_query_operand(queries, query_block),
+        count, k, tail, query_block=query_block, b=b, ctas_per_sm=_NARROW_CTAS_PER_SM,
+    )
+    narrow_counter.add()
+    return out
+
+
 def fused_topk_q(
     emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
     count: int, k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K6 (``csrc/topk.cu``, on the tensor-core loop), as
-    :func:`topk_q_plain`; queries are f32 and are cast to bf16 once here,
-    as the JAX kernel's caller casts them. ``d_pad % 64 == 0``."""
+    """K6 (``csrc/topk_narrow.cu`` up to 16 queries where its plan fits
+    the width, else the tensor-core loop of ``csrc/topk.cu``), as :func:`topk_q_plain`; queries are f32
+    and are cast to bf16 once here, as the JAX kernel's caller casts them.
+    ``d_pad % 64 == 0``."""
     if emb_q.device.type == "cpu":
         return topk_q_plain(emb_q, scales, queries, count, k)
     _check_int8_operands(emb_q, scales, queries)
-    return _launch_topk(
-        "tat_topk_scan_q", TOPK_Q_LAUNCHES, emb_q, (scales.data_ptr(),),
-        queries.to(torch.bfloat16), count, k, query_block=_MMA_QB,
+    return _launch_int8_scan(
+        "tat_topk_scan_q", "tat_topk_scan_q_narrow", TOPK_Q_LAUNCHES, TOPK_Q_NARROW_LAUNCHES,
+        emb_q, scales, queries, count, k,
     )
 
 
@@ -610,18 +728,17 @@ def fused_topk_mq(
     emb_q: torch.Tensor, scales: torch.Tensor, queries: torch.Tensor,
     count: int, rowmask: torch.Tensor, k: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7 (``csrc/topk.cu``), as :func:`topk_mq_plain`; the mask is
-    int32. The kernel reads only the tiles :func:`scope_tiles` lists,
-    which it builds on the device without a host synchronisation."""
+    """K7 (the route of :func:`fused_topk_q`), as :func:`topk_mq_plain`;
+    the mask is int32. The kernel reads only the tiles :func:`scope_tiles`
+    lists, which it builds on the device without a host synchronisation."""
     if emb_q.device.type == "cpu":
         return topk_mq_plain(emb_q, scales, queries, count, rowmask, k)
     _check_int8_operands(emb_q, scales, queries)
     mask = _check_rowmask(rowmask, emb_q)
     tiles, n_tiles = scope_tiles(mask, count)
-    return _launch_topk(
-        "tat_topk_scan_mq", TOPK_MQ_LAUNCHES, emb_q, (scales.data_ptr(),),
-        queries.to(torch.bfloat16), count, k,
-        (mask.data_ptr(), tiles.data_ptr(), n_tiles.data_ptr()), query_block=_MMA_QB,
+    return _launch_int8_scan(
+        "tat_topk_scan_mq", "tat_topk_scan_mq_narrow", TOPK_MQ_LAUNCHES, TOPK_MQ_NARROW_LAUNCHES,
+        emb_q, scales, queries, count, k, (mask.data_ptr(), tiles.data_ptr(), n_tiles.data_ptr()),
     )
 
 
